@@ -1,0 +1,1 @@
+"""VGG-16 trunk, cascade heads and the MNC assembly (inference)."""

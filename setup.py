@@ -28,13 +28,16 @@ setup(
     name="mnc_tpu",
     version="0.1.0",
     description="TPU-native Multi-task Network Cascades (instance segmentation)",
-    packages=find_packages(include=["mnc_tpu", "mnc_tpu.*"]),
-    package_data={"mnc_tpu.native": ["*.cpp", "Makefile"]},
+    packages=find_packages(include=["mnc_tpu", "mnc_tpu.*",
+                                    "mnc_tpu_torch", "mnc_tpu_torch.*"]),
+    package_data={"mnc_tpu.native": ["*.cpp", "Makefile"],
+                  "mnc_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "pyyaml"],
     extras_require={
         "data": ["opencv-python", "scipy"],
         "ckpt": ["orbax-checkpoint"],
+        "torch": ["torch"],
     },
     cmdclass={"build_native": BuildNative},
 )

@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+at edge shapes that the serving path does not reach (``chip_smoke.py``
+covers the serving shapes and the whole pipeline, card against CPU).  Marked ``cuda``; without a GPU every test skips.
+
+This file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
+
+Tolerances: NMS keeps identical; RoI warp ≤1e-5·max|F| in f32 and
+2 bf16 ulps of max|F| in bf16; paste bit for bit except pixels whose f32
+product lies within 1e-5 of the threshold.
+"""
+
+import pytest
+import torch
+
+from mnc_tpu_torch import kernels
+from mnc_tpu_torch.ops.masks import _paste_axis_weights, paste_binarize_plain
+from mnc_tpu_torch.ops.nms import nms_keep_plain
+from mnc_tpu_torch.ops.roi_warp import roi_warp_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _boxes(gen, shape, h, w, lo=2.0, hi=80.0):
+    x1 = torch.rand(shape, generator=gen, device="cuda") * (w + 20) - 10
+    y1 = torch.rand(shape, generator=gen, device="cuda") * (h + 20) - 10
+    bw = lo + torch.rand(shape, generator=gen, device="cuda") * (hi - lo)
+    bh = lo + torch.rand(shape, generator=gen, device="cuda") * (hi - lo)
+    return torch.stack([x1, y1, x1 + bw, y1 + bh], -1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,w,c,out_hw", [(1, 1, 3, 5, 8, (1, 1)),
+                                              (2, 37, 12, 16, 24, (7, 5)),
+                                              (3, 304, 40, 64, 512, (14, 14))])
+def test_roi_warp_kernel_matches_plain(gen, dtype, b, n, h, w, c, out_hw):
+    feat = torch.randn(b, h, w, c, generator=gen, device="cuda").to(dtype)
+    rois = _boxes(gen, (b, n), 16 * h, 16 * w, hi=16 * h)
+    got = kernels.roi_warp_cuda(feat, rois, out_hw, 1.0 / 16)
+    want = roi_warp_plain(feat, rois, out_hw, 1.0 / 16)
+    scale = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= scale * feat.float().abs().max().item()
+
+
+def test_roi_warp_kernel_rejects_bad_inputs(gen):
+    feat = torch.zeros(1, 4, 4, 12, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.roi_warp_cuda(feat, torch.zeros(1, 2, 4, device="cuda"), (2, 2), 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.roi_warp_cuda(torch.zeros(1, 4, 4, 16, device="cuda").transpose(1, 2),
+                              torch.zeros(1, 2, 4, device="cuda"), (2, 2), 0.25)
+
+
+@pytest.mark.parametrize("p,k", [(1, 1), (3, 63), (2, 65), (5, 130), (1, 2000)])
+@pytest.mark.parametrize("thresh,top_n", [(0.3, 0), (0.7, 0), (0.5, 10)])
+def test_nms_kernel_matches_plain(gen, p, k, thresh, top_n):
+    boxes = _boxes(gen, (p, k), 200, 300, lo=4.0, hi=60.0)
+    valid = torch.rand(p, k, generator=gen, device="cuda") > 0.2
+    got = kernels.nms_keep_cuda(boxes, valid, thresh, top_n)
+    want = nms_keep_plain(boxes, valid, thresh, top_n)
+    assert torch.equal(got, want)
+    if top_n:
+        assert int(got.sum(1).max()) <= top_n
+
+
+def test_nms_kernel_duplicates_and_all_invalid(gen):
+    boxes = torch.tensor([[10.0, 10.0, 50.0, 50.0]], device="cuda").expand(2, 300, 4)
+    valid = torch.ones(2, 300, dtype=torch.bool, device="cuda")
+    valid[1] = False
+    keep = kernels.nms_keep_cuda(boxes.contiguous(), valid, 0.5)
+    assert keep[0].sum() == 1 and keep[0, 0] and not keep[1].any()
+
+
+@pytest.mark.parametrize("n,h,w,m", [(3, 40, 130, 9), (7, 96, 128, 28), (100, 640, 1024, 21)])
+@pytest.mark.parametrize("thresh", [0.4, -0.1])
+def test_paste_kernel_matches_plain(gen, n, h, w, m, thresh):
+    boxes = _boxes(gen, (n,), h, w, lo=1.0, hi=max(h, w) / 2)
+    masks = torch.rand(n, m, m, generator=gen, device="cuda")
+    wy = _paste_axis_weights(boxes[:, 1], boxes[:, 3], m, h).contiguous()
+    wxt = _paste_axis_weights(boxes[:, 0], boxes[:, 2], m, w).transpose(1, 2).contiguous()
+    got = kernels.paste_binarize_cuda(wy, masks, wxt, thresh)
+    prod = torch.bmm(torch.bmm(wy, masks), wxt)
+    want = paste_binarize_plain(wy, masks, wxt, thresh)
+    mism = got != want
+    if mism.any():
+        assert (prod[mism] - thresh).abs().max().item() < 1e-5
+
+
+
+def test_proposals_and_bridge_break_ties_as_on_the_cpu(gen):
+    """Exact score ties (bf16-rounded RPN logits) and tied foreground classes
+    resolve to the lower index on the card, as on the CPU (and in JAX)."""
+    from mnc_tpu_torch.models.mnc import MNCArch, propose_rois, stage_bridge
+
+    arch = MNCArch(pre_nms_top_n=6000, post_nms_top_n=304)
+    fh, fw = arch.feat_hw
+    cls = torch.randn(2, fh, fw, 2 * arch.num_anchors, generator=gen, device="cuda")
+    cls = cls.to(torch.bfloat16).float()
+    box = 0.3 * torch.randn(2, fh, fw, 4 * arch.num_anchors, generator=gen, device="cuda")
+    info = torch.tensor([[640.0, 1024.0, 1.0], [600.0, 900.0, 0.9]], device="cuda")
+    anchors = torch.from_numpy(arch.all_anchors())
+    got = propose_rois(cls, box, info, anchors.cuda(), arch)
+    want = propose_rois(cls.cpu(), box.cpu(), info.cpu(), anchors, arch)
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=0, atol=1e-6)
+
+    n, c = 304, 21
+    prob = torch.full((2, n, c), 1.0 / c, device="cuda")  # every class ties
+    pred = 0.1 * torch.randn(2, n, 4 * c, generator=gen, device="cuda")
+    rois = got[0]
+    on_card = stage_bridge(rois, prob, pred, info, arch)
+    on_cpu = stage_bridge(rois.cpu(), prob.cpu(), pred.cpu(), info.cpu(), arch)
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=1e-3)

@@ -1,0 +1,132 @@
+"""Package rules of the port: it imports neither JAX nor the JAX package, its
+entry points default to ``cuda`` and raise without a GPU, its kernel
+wrappers take CUDA tensors only, and its cfg copy keeps every key of the JAX
+package's cfg (so ``experiments/cfgs/*.yml`` load unchanged)."""
+
+import glob
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mnc_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(mnc_tpu_torch.__path__,
+                                                        "mnc_tpu_torch."))
+
+
+def test_port_imports_no_jax_and_no_mnc_tpu():
+    """Run in a fresh interpreter: tests/conftest.py has imported jax here."""
+    mods = _port_modules()
+    assert {"mnc_tpu_torch.kernels._build", "mnc_tpu_torch.models.mnc",
+            "mnc_tpu_torch.pipeline.inference"} <= set(mods)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'mnc_tpu') "
+        "or m.startswith(('jax.', 'flax.', 'mnc_tpu.')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU behaviour cannot be shown")
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.utils.device import resolve_device
+
+    arch = MNCArch(canvas=(96, 128), fc_dim=8, mask_fc_dim=8, pre_nms_top_n=16,
+                   post_nms_top_n=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MNC(arch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper never runs a plain version: a CPU tensor is an error there
+    (the ops modules route CPU tensors to the plain versions instead)."""
+    from mnc_tpu_torch import kernels
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.roi_warp_cuda(torch.zeros(1, 4, 4, 8), torch.zeros(1, 2, 4), (2, 2), 0.25)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.nms_keep_cuda(torch.zeros(1, 5, 4), torch.ones(1, 5, dtype=torch.bool), 0.5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.paste_binarize_cuda(torch.zeros(1, 4, 3), torch.zeros(1, 3, 3),
+                                    torch.zeros(1, 3, 4), 0.4)
+    assert kernels.launch_counts() == {"roi_warp_cuda": 0, "nms_keep_cuda": 0,
+                                       "paste_binarize_cuda": 0}
+
+
+def _keys(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_keys(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def test_cfg_keeps_every_key_and_default():
+    from mnc_tpu import config as jcfg
+    from mnc_tpu_torch import config as cfg
+
+    want, got = _keys(jcfg.cfg), _keys(cfg.cfg)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(got[k], v)
+        else:
+            assert got[k] == v, k
+    assert cfg.COMPAT_ONLY_KEYS == jcfg.COMPAT_ONLY_KEYS
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(REPO, "experiments",
+                                                               "cfgs", "*.yml"))))
+def test_experiment_yamls_load(path):
+    from mnc_tpu_torch import config as cfg
+
+    saved = cfg.cfg.clone()
+    try:
+        cfg.cfg_from_file(path)
+        cfg.cfg_from_list(["TEST.VOTE_BOTH_PASSES", "True", "STATIC.CANVAS", "(480, 640)"])
+        assert cfg.cfg.TEST.VOTE_BOTH_PASSES is True
+        assert cfg.cfg.STATIC.CANVAS == (480, 640)
+    finally:
+        cfg.cfg.clear()
+        cfg.cfg.update(saved)
+
+
+def test_arch_and_post_from_cfg():
+    from mnc_tpu.models.mnc import MNCArch as JArch
+    from mnc_tpu.pipeline.inference import PostCfg as JPostCfg
+    from mnc_tpu_torch.models.mnc import MNCArch
+    from mnc_tpu_torch.pipeline.inference import PostCfg
+
+    a, ja = MNCArch.from_cfg(), JArch.from_cfg()
+    for f in ("canvas", "num_classes", "mask_size", "warp_hw", "pooled_hw", "n_stages",
+              "fc_dim", "mask_fc_dim", "pre_nms_top_n", "post_nms_top_n",
+              "rpn_nms_thresh", "rpn_min_size", "nms_chunk", "bbox_means", "bbox_stds",
+              "suppress_untrainable_anchors"):
+        assert getattr(a, f) == getattr(ja, f), f
+    assert a.compute_dtype == torch.bfloat16
+    p, jp = PostCfg.from_cfg(dets_per_class=16), JPostCfg.from_cfg(dets_per_class=16)
+    for f in ("nms_thresh", "dets_per_class", "max_per_image", "use_mask_merge",
+              "mask_merge_iou", "vote_top_k", "vote_boxes", "vote_both_passes",
+              "score_thresh", "paste", "binarize_thresh"):
+        assert getattr(p, f) == getattr(jp, f), f
