@@ -5,9 +5,12 @@ each module's counterpart is easy to find, and imports nothing of it (nor of
 JAX): the port keeps its own copies of what it needs.
 
     mnc_tpu_torch.config    — the cfg tree (same keys, YAML loaded lazily)
-    mnc_tpu_torch.ops       — geometry, NMS, RoI warp, masks, voting
+    mnc_tpu_torch.ops       — geometry, NMS, RoI warp, masks, voting, losses, block 1
     mnc_tpu_torch.models    — VGG-16 trunk, RPN / mask / classify heads, MNC
     mnc_tpu_torch.pipeline  — post-processing and the canvas-space server API
+    mnc_tpu_torch.train     — targets, the solver, the multi-task loss and step
+    mnc_tpu_torch.data      — the synthetic shapes dataset
+    mnc_tpu_torch.tools     — entry points (``python3 -m ...tools.train_net``)
     mnc_tpu_torch.utils     — device normalization, the JAX weight bridge
     mnc_tpu_torch.kernels   — build, load and launch the CUDA kernels (csrc/)
 

@@ -9,8 +9,10 @@ went through.  The ops modules call these for CUDA tensors and their plain
 PyTorch versions for CPU tensors; nothing here falls back.
 
     roi_warp_cuda        — kernel A, csrc/roi_warp.cu (replaces roi_warp_pallas)
+    roi_warp_bwd_cuda    — kernel A', csrc/roi_warp_bwd.cu (replaces its VJP)
     nms_keep_cuda        — kernel B, csrc/nms.cu      (replaces nms_pallas)
     paste_binarize_cuda  — kernel C, csrc/paste.cu    (replaces paste_binarize_pallas)
+    block1_cuda          — kernel D, csrc/block1.cu   (replaces fused_block1)
 """
 
 from __future__ import annotations
@@ -66,6 +68,36 @@ def roi_warp_cuda(features: torch.Tensor, rois: torch.Tensor, out_hw,
     return out
 
 
+def roi_warp_bwd_cuda(grad_out: torch.Tensor, features: torch.Tensor, rois: torch.Tensor,
+                      spatial_scale: float):
+    """Gradients of :func:`roi_warp_cuda`: grad_out (B, N, PH, PW, C) and
+    features (B, H, W, C), both f32 or both bf16, rois (B, N, 4) f32 →
+    (d features (B, H, W, C) in the feature dtype, d rois (B, N, 4) f32).
+
+    d features is summed with f32 atomics and cast once, so its last bits
+    vary from run to run; d rois is deterministic."""
+    _check(features, "features", (torch.float32, torch.bfloat16), 4)
+    _check(grad_out, "grad_out", (features.dtype,), 5, features.device)
+    _check(rois, "rois", (torch.float32,), 3, features.device)
+    b, h, w, c = features.shape
+    n = rois.shape[1]
+    ph, pw = grad_out.shape[2:4]
+    if tuple(rois.shape) != (b, n, 4) or tuple(grad_out.shape) != (b, n, ph, pw, c):
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} / rois {tuple(rois.shape)} do "
+                         f"not match features {tuple(features.shape)}")
+    vec = 4 if features.dtype == torch.float32 else 8
+    if c % vec:
+        raise ValueError(f"channels ({c}) must be a multiple of {vec}")
+    dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=features.device)
+    part = torch.empty((b, n, ph, 4), dtype=torch.float32, device=features.device)
+    _launch("roi_warp_bwd", features.device, grad_out.data_ptr(), features.data_ptr(),
+            rois.data_ptr(), dfeat.data_ptr(), part.data_ptr(), b, h, w, c, n, ph, pw,
+            float(spatial_scale), 0 if features.dtype == torch.float32 else 1,
+            _stream(features))
+    roi_warp_bwd_cuda.launches += 1
+    return dfeat.to(features.dtype), part.sum(dim=2)
+
+
 def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,
                   top_n: int = 0) -> torch.Tensor:
     """Greedy NMS keep masks: boxes (P, K, 4) f32 score-sorted, valid (P, K)
@@ -104,7 +136,28 @@ def paste_binarize_cuda(wy: torch.Tensor, masks: torch.Tensor, wxt: torch.Tensor
     return out
 
 
-KERNELS = (roi_warp_cuda, nms_keep_cuda, paste_binarize_cuda)
+def block1_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                b2: torch.Tensor) -> torch.Tensor:
+    """Fused VGG block 1, all bf16: x (B, H, W, 3), w1 (3, 3, 3, 64) and w2
+    (3, 3, 64, 64) in HWIO order, b1 and b2 (64,) → (B, H/2, W/2, 64)."""
+    bf = (torch.bfloat16,)
+    _check(x, "x", bf, 4)
+    for t, name, shape in ((w1, "w1", (3, 3, 3, 64)), (b1, "b1", (64,)),
+                           (w2, "w2", (3, 3, 64, 64)), (b2, "b2", (64,))):
+        _check(t, name, bf, len(shape), x.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    b, h, w, c = x.shape
+    if c != 3 or h % 2 or w % 2:
+        raise ValueError(f"x has shape {tuple(x.shape)}: 3 channels and even H, W needed")
+    out = torch.empty((b, h // 2, w // 2, 64), dtype=torch.bfloat16, device=x.device)
+    _launch("block1", x.device, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), b, h, w, _stream(x))
+    block1_cuda.launches += 1
+    return out
+
+
+KERNELS = (roi_warp_cuda, roi_warp_bwd_cuda, nms_keep_cuda, paste_binarize_cuda, block1_cuda)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -1,1 +1,1 @@
-"""VGG-16 trunk, cascade heads and the MNC assembly (inference)."""
+"""VGG-16 trunk, cascade heads and the MNC assembly."""

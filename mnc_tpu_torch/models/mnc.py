@@ -1,4 +1,4 @@
-"""The Multi-task Network Cascade (inference) — port of ``mnc_tpu/models/mnc.py``.
+"""The Multi-task Network Cascade — port of ``mnc_tpu/models/mnc.py``.
 
 Trunk → RPN → proposals (decode, clip, min-size, top-K, NMS, top-N) → RoI
 warp → mask head → mask pooling → classify head → stage bridge → the second
@@ -7,7 +7,9 @@ the JAX package: proposals are a padded top-N with a validity mask, so the
 outputs compare with the JAX package's element by element.  The JAX
 package's ``fault_dodges`` structures (an optimization barrier, ``lax.map``)
 work around a TPU fault; their selections are exact, so the port has no
-counterpart.  The training stages (targets, losses) are not ported yet.
+counterpart.  Training uses the stage methods (``features``, ``rpn``,
+``warp``, ``mask_stage``, ``classify_stage``) from
+``mnc_tpu_torch.train.loop``, so that target sampling can come between them.
 """
 
 from __future__ import annotations
@@ -77,6 +79,13 @@ class MNCArch:
     # zero proposals of anchor types that have no fully-inside position on
     # this canvas (off for imported weights: the reference scores all anchors)
     suppress_untrainable_anchors: bool = True
+    # trunk blocks with stopped gradients (the reference froze conv1-conv2,
+    # which were ImageNet-pretrained; set 0 when training from random init)
+    trunk_frozen: int = 2
+    # NET.FUSED_BLOCK1: run VGG block 1 as the fused CUDA kernel
+    # (ops/block1.py) when compute_dtype is bf16, H % 8 == 0 and W % 2 == 0;
+    # same parameters, within 1 bf16 ulp of the unfused layers
+    fused_block1: bool = False
 
     def __post_init__(self):
         if self.pooled_hw is None:
@@ -91,17 +100,21 @@ class MNCArch:
         object.__setattr__(self, "post_nms_top_n", min(self.post_nms_top_n, pre))
 
     @classmethod
-    def from_cfg(cls, **overrides) -> "MNCArch":
-        """The test-time architecture of the global cfg.
+    def from_cfg(cls, train: bool = False, **overrides) -> "MNCArch":
+        """The architecture of the global cfg, with the TEST.* working set
+        and thresholds, or the TRAIN.* ones when ``train``.
 
         Raises for what the port does not run yet: other trunks, int8
         inference, the per-RoI conv5 head and the dual-pathway classify
-        head.  ``NET.S2D_BLOCK1`` and
-        ``NET.FUSED_BLOCK1`` only change the JAX package's layout of block 1,
-        not its math, and are ignored."""
+        head.  ``NET.S2D_BLOCK1`` only changes the JAX package's layout of
+        block 1 (no kernel, same math) and is ignored."""
         cfg = C.cfg
-        if (cfg.NET.TRUNK != "vgg16" or cfg.NET.ROI_CONV5 or cfg.TEST.INT8
-                or cfg.NET.DUAL_PATHWAY):
+        split = cfg.TRAIN if train else cfg.TEST
+        name = "TRAIN" if train else "TEST"
+        static_pre = getattr(cfg.STATIC, f"{name}_PRE_NMS_TOP_N")
+        static_post = getattr(cfg.STATIC, f"{name}_POST_NMS_TOP_N")
+        if (cfg.NET.TRUNK != "vgg16" or cfg.NET.ROI_CONV5
+                or (cfg.TEST.INT8 and not train) or cfg.NET.DUAL_PATHWAY):
             raise NotImplementedError(
                 "the port runs the VGG-16 cascade in float with the single-"
                 f"pathway head only (NET.TRUNK {cfg.NET.TRUNK!r}, NET.ROI_CONV5 "
@@ -121,21 +134,23 @@ class MNCArch:
             fc_dim=cfg.NET.FC_DIM,
             mask_fc_dim=cfg.NET.MASK_FC_DIM,
             suppress_untrainable_anchors=bool(cfg.NET.SUPPRESS_UNTRAINABLE_ANCHORS),
-            pre_nms_top_n=_cap(cfg.TEST.RPN_PRE_NMS_TOP_N, cfg.STATIC.TEST_PRE_NMS_TOP_N,
-                               "TEST.RPN_PRE_NMS_TOP_N", "STATIC.TEST_PRE_NMS_TOP_N"),
+            pre_nms_top_n=_cap(split.RPN_PRE_NMS_TOP_N, static_pre,
+                               f"{name}.RPN_PRE_NMS_TOP_N",
+                               f"STATIC.{name}_PRE_NMS_TOP_N"),
             # reference knob capped by STATIC, rounded up to a multiple of 8
-            post_nms_top_n=_cap(-(-cfg.TEST.RPN_POST_NMS_TOP_N // 8) * 8,
-                                cfg.STATIC.TEST_POST_NMS_TOP_N,
-                                "TEST.RPN_POST_NMS_TOP_N (8-padded)",
-                                "STATIC.TEST_POST_NMS_TOP_N"),
-            rpn_nms_thresh=cfg.TEST.RPN_NMS_THRESH,
-            rpn_min_size=float(cfg.TEST.RPN_MIN_SIZE),
-            test_bbox_reg=bool(cfg.TEST.BBOX_REG),
+            post_nms_top_n=_cap(-(-split.RPN_POST_NMS_TOP_N // 8) * 8, static_post,
+                                f"{name}.RPN_POST_NMS_TOP_N (8-padded)",
+                                f"STATIC.{name}_POST_NMS_TOP_N"),
+            rpn_nms_thresh=split.RPN_NMS_THRESH,
+            rpn_min_size=float(split.RPN_MIN_SIZE),
+            test_bbox_reg=bool(train or cfg.TEST.BBOX_REG),
             bbox_means=(tuple(cfg.TRAIN.BBOX_NORMALIZE_MEANS)
                         if cfg.TRAIN.BBOX_NORMALIZE_TARGETS else (0.0,) * 4),
             bbox_stds=(tuple(cfg.TRAIN.BBOX_NORMALIZE_STDS)
                        if cfg.TRAIN.BBOX_NORMALIZE_TARGETS else (1.0,) * 4),
-            nms_chunk=int(cfg.STATIC.NMS_CHUNK) or 256,
+            nms_chunk=int(cfg.STATIC.NMS_CHUNK) or (512 if train else 256),
+            trunk_frozen=int(cfg.NET.TRUNK_FROZEN),
+            fused_block1=bool(cfg.NET.FUSED_BLOCK1),
         )
         kw.update(overrides)
         return cls(**kw)
@@ -231,8 +246,10 @@ def propose_rois(rpn_cls: torch.Tensor, rpn_bbox: torch.Tensor, im_info: torch.T
     top_boxes = _take(boxes, top_idx)
     top_valid = top_scores > neg_inf
 
-    # presorted: descending scores with the invalid padding trailing
-    idx, keep_valid = nms_indices(top_boxes, top_scores, top_valid, arch.rpn_nms_thresh,
+    # presorted: descending scores with the invalid padding trailing.  NMS
+    # only selects (no gradient); the gathers below carry the gradient
+    idx, keep_valid = nms_indices(top_boxes.detach(), top_scores.detach(), top_valid,
+                                  arch.rpn_nms_thresh,
                                   arch.post_nms_top_n, chunk=arch.nms_chunk,
                                   presorted=True)
     rois = _take(top_boxes, idx)
@@ -307,7 +324,7 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 
 class MNC(nn.Module):
-    """Full MNC network (inference): trunk + RPN + shared mask/classify heads.
+    """Full MNC network: trunk + RPN + shared mask/classify heads.
 
     Args:
       arch: the static configuration.
@@ -317,21 +334,26 @@ class MNC(nn.Module):
         initializers (lecun-normal kernels, zero biases, normal(0.001) for
         ``bbox_pred``).  Load trained or bridged weights with
         ``load_state_dict``.
-
-    Weights are held in ``arch.compute_dtype``.
+      train: ``False`` (serving): the weights are held in
+        ``arch.compute_dtype`` and take no gradient.  ``True``: the weights
+        are f32 master parameters that take gradients, every layer casts
+        them to ``arch.compute_dtype`` in its forward (the JAX package's
+        ``param_dtype=float32``), and the module is in training mode.
     """
 
-    def __init__(self, arch: MNCArch = MNCArch(), device=None, seed: int = 0):
+    def __init__(self, arch: MNCArch = MNCArch(), device=None, seed: int = 0,
+                 train: bool = False):
         super().__init__()
         dev = resolve_device(device)
         a = arch
         self.arch = a
         c = 512
-        self.trunk = VGG16Trunk()
-        self.rpn_head = RPNHead(num_anchors=a.num_anchors, in_channels=c)
-        self.mask_head = MaskHead(a.warp_hw * a.warp_hw * c, a.mask_fc_dim, a.mask_size)
+        cd = a.compute_dtype
+        self.trunk = VGG16Trunk(cd, a.trunk_frozen, a.fused_block1)
+        self.rpn_head = RPNHead(a.num_anchors, c, compute_dtype=cd)
+        self.mask_head = MaskHead(a.warp_hw * a.warp_hw * c, a.mask_fc_dim, a.mask_size, cd)
         self.classify_head = ClassifyHead(a.pooled_hw * a.pooled_hw * c, a.num_classes,
-                                          a.fc_dim, a.warp_hw // a.pooled_hw)
+                                          a.fc_dim, a.warp_hw // a.pooled_hw, cd)
         gen = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith(".bias"):
@@ -344,11 +366,12 @@ class MNC(nn.Module):
                              persistent=False)
         self.register_buffer("resize_mat", torch.from_numpy(
             linear_resize_matrix(a.mask_size, a.warp_hw)), persistent=False)
-        self.requires_grad_(False)
-        self.eval()
+        self.requires_grad_(train)
+        self.train(train)
         self.to(dev)
-        for m in (self.trunk, self.rpn_head, self.mask_head, self.classify_head):
-            m.to(a.compute_dtype)
+        if not train:
+            for m in (self.trunk, self.rpn_head, self.mask_head, self.classify_head):
+                m.to(cd)
         if dev.type == "cuda":  # cuDNN's NHWC kernels for the NHWC trunk
             self.trunk.to(memory_format=torch.channels_last)
             self.rpn_head.to(memory_format=torch.channels_last)
@@ -362,18 +385,27 @@ class MNC(nn.Module):
     def features(self, images: torch.Tensor) -> torch.Tensor:
         return self.trunk(device_normalize(images))
 
+    def rpn(self, feat: torch.Tensor):
+        return self.rpn_head(feat)
+
     def warp(self, feat: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
         a = self.arch
         return roi_warp(feat, rois, (a.warp_hw, a.warp_hw), a.spatial_scale)
 
-    def classify_stage(self, roi_feat: torch.Tensor, mask_logits: torch.Tensor):
+    def mask_stage(self, roi_feat: torch.Tensor) -> torch.Tensor:
+        """Warped RoI features (N, 14, 14, C) → mask logits (N, M, M)."""
+        return self.mask_head(roi_feat)
+
+    def classify_stage(self, roi_feat: torch.Tensor, mask_logits: torch.Tensor,
+                       train: bool = False, keep_masks=None):
         """RoI features + mask logits → (cls_logits, bbox_pred).  The sigmoid
         mask is resized M → warp_hw exactly as ``jax.image.resize(...,
-        "linear")`` does, as two small f32 matmuls."""
+        "linear")`` does, as two small f32 matmuls.  ``train`` turns dropout
+        on; ``keep_masks`` are its optional keep-masks (see ClassifyHead)."""
         soft = torch.sigmoid(mask_logits)
-        r = self.resize_mat
+        r = self.resize_mat.to(soft.dtype)
         soft14 = r @ soft @ r.T
-        return self.classify_head(roi_feat, soft14)
+        return self.classify_head(roi_feat, soft14, train, keep_masks)
 
     def _heads(self, feat: torch.Tensor, rois: torch.Tensor):
         """Both heads on the (B·N) flattened RoI set of a batch."""
@@ -381,7 +413,7 @@ class MNC(nn.Module):
         b, n = rois.shape[:2]
         roi_feat = self.warp(feat, rois)  # (B, N, 14, 14, C)
         flat = roi_feat.reshape(b * n, *roi_feat.shape[2:])
-        mask_logits = self.mask_head(flat)
+        mask_logits = self.mask_stage(flat)
         cls_logits, bbox_pred = self.classify_stage(flat, mask_logits)
         return (mask_logits.reshape(b, n, a.mask_size, a.mask_size),
                 torch.softmax(cls_logits, dim=-1).reshape(b, n, -1),
@@ -403,7 +435,7 @@ class MNC(nn.Module):
         """
         a = self.arch
         feat = self.features(images)
-        rpn_cls, rpn_bbox = self.rpn_head(feat)
+        rpn_cls, rpn_bbox = self.rpn(feat)
         im_infos = im_infos.float()
         rois, roi_valid, _ = propose_rois(rpn_cls, rpn_bbox, im_infos, self.anchors, a)
 

@@ -1,15 +1,45 @@
 """Box geometry — port of ``mnc_tpu/ops/bbox.py``.
 
 Behavioral port of the reference ``lib/transform/bbox_transform.py``
-(bbox_transform_inv, clip_boxes) and ``lib/utils/cython_bbox.pyx``
+(bbox_transform, bbox_transform_inv, clip_boxes) and ``lib/utils/cython_bbox.pyx``
 (bbox_overlaps), preserving the Caffe pixel convention (w = x2 - x1 + 1).
 Every expression keeps the JAX package's order of operations, so f32 results
-agree to the last bit where the backends round alike.
+agree to the last bit where the backends round alike.  Clamps are written
+as ``torch.maximum``/``torch.minimum`` against a tensor: at a tie these
+split the gradient in halves, as ``jnp.maximum``/``jnp.clip`` do, where
+``Tensor.clamp`` would pass all of it.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Regression targets (dx, dy, dw, dh) that map ex_rois onto gt_rois.
+    (..., 4), (..., 4) -> (..., 4); differentiable in both."""
+    one = ex_rois.new_ones(())
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+
+    # guard against degenerate (padded) boxes: clamp sizes to >= 1
+    ex_w = torch.maximum(ex_w, one)
+    ex_h = torch.maximum(ex_h, one)
+    gt_w = torch.maximum(gt_w, one)
+    gt_h = torch.maximum(gt_h, one)
+
+    dx = (gt_cx - ex_cx) / ex_w
+    dy = (gt_cy - ex_cy) / ex_h
+    dw = torch.log(gt_w / ex_w)
+    dh = torch.log(gt_h / ex_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
@@ -21,8 +51,9 @@ def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tenso
 
     dx, dy, dw, dh = deltas.unbind(-1)
     # clamp dw/dh against exp overflow on padded garbage
-    dw = dw.clamp(-8.0, 8.0)
-    dh = dh.clamp(-8.0, 8.0)
+    lim = deltas.new_full((), 8.0)
+    dw = torch.minimum(torch.maximum(dw, -lim), lim)
+    dh = torch.minimum(torch.maximum(dh, -lim), lim)
 
     pred_cx = dx * w + cx
     pred_cy = dy * h + cy

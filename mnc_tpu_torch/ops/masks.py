@@ -1,5 +1,6 @@
-"""Canvas paste-back of soft masks — port of the unmold half of
-``mnc_tpu/ops/masks.py``.
+"""Mask geometry — port of ``mnc_tpu/ops/masks.py``: the training-side
+``intersect_mask`` (crop a gt instance mask to an RoI and resize it to
+MASK_SIZE, in plain f32) and the canvas paste-back of soft masks.
 
 Per instance, the paste is the hat-matrix pair  out = Wy @ mask @ Wxᵀ
 restricted to the box, then ``> thresh``.  A CUDA tensor goes to kernel C
@@ -14,7 +15,43 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mnc_tpu_torch.ops.roi_warp import interp_matrix
+from mnc_tpu_torch.ops.roi_warp import interp_matrix, unit_grid
+
+
+def _box_grid_centers(boxes: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
+    """(..., P) continuous source coords of P bin centers spanning each of
+    the (..., 4) boxes along one axis (0 = y, 1 = x)."""
+    lo = boxes[..., 1] if axis == 0 else boxes[..., 0]
+    hi = boxes[..., 3] if axis == 0 else boxes[..., 2]
+    span = hi - lo + 1.0
+    grid = unit_grid(out_size, boxes.device)
+    return lo.unsqueeze(-1) + grid * span.unsqueeze(-1) - 0.5
+
+
+def intersect_mask(rois: torch.Tensor, gt_boxes: torch.Tensor, gt_masks: torch.Tensor,
+                   mask_size: int, binarize: bool = True) -> torch.Tensor:
+    """Mask regression targets: crop each gt mask to an RoI, resize to M×M.
+
+    rois (..., N, 4) sampled RoIs, gt_boxes (..., N, 4) the matched gt box
+    per RoI, gt_masks (..., N, S, S) the matched gt mask per RoI, stored
+    gt-box-cropped (the maskdb convention).  Returns (..., N, M, M) f32,
+    thresholded at ``>= 0.5`` when ``binarize``; RoI area outside the gt box
+    is 0.  The product runs in full f32 (no TF32).
+    """
+    s = gt_masks.shape[-1]
+    # RoI bin centers in image coords, then into gt-box-normalized mask coords
+    yc_img = _box_grid_centers(rois, mask_size, 0) + 0.5  # undo the -0.5 pixel shift
+    xc_img = _box_grid_centers(rois, mask_size, 1) + 0.5
+    gh = gt_boxes[..., 3] - gt_boxes[..., 1] + 1.0
+    gw = gt_boxes[..., 2] - gt_boxes[..., 0] + 1.0
+    yc = (yc_img - gt_boxes[..., 1:2]) / gh.unsqueeze(-1) * s - 0.5
+    xc = (xc_img - gt_boxes[..., 0:1]) / gw.unsqueeze(-1) * s - 0.5
+    wy = interp_matrix(yc, s)  # (..., N, M, S); rows vanish outside the gt box
+    wx = interp_matrix(xc, s)
+    out = wy @ gt_masks.to(wy.dtype) @ wx.transpose(-1, -2)
+    if binarize:
+        out = (out >= 0.5).to(torch.float32)
+    return out
 
 
 def _paste_axis_weights(lo: torch.Tensor, hi: torch.Tensor, m: int,

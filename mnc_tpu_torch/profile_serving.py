@@ -1,10 +1,11 @@
 """Where the time of one serving request goes, on the GPU.
 
-    python3 -m mnc_tpu_torch.profile_serving [--batch 4] [--iters 5]
+    python3 -m mnc_tpu_torch.profile_serving [--batch 4] [--iters 5] [--fused-block1]
 
 Drives the full-width 5-stage VGG-16 serving path (the configuration of
 ``chip_smoke.py``: 640×1024 canvas, pre-NMS 6000, post-NMS 304, bf16,
-seeded random init) and prints, for one request of ``--batch`` canvases:
+seeded random init; ``--fused-block1`` runs VGG block 1 through kernel D) and
+prints, for one request of ``--batch`` canvases:
 
 - per-stage stream times from CUDA events around each stage (trunk, RPN +
   proposals, first head pass, bridge + second head pass, post-processing;
@@ -41,7 +42,7 @@ def _stages(model, post, images, infos):
         st["feat"] = model.features(images)
 
     def propose():
-        cls, box = model.rpn_head(st["feat"])
+        cls, box = model.rpn(st["feat"])
         st["rois"], st["valid"], _ = propose_rois(cls, box, infos, model.anchors, a)
 
     def heads1():
@@ -68,6 +69,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--fused-block1", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
@@ -76,7 +78,7 @@ def main() -> None:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {smi}")
     arch = MNCArch(pre_nms_top_n=6000, post_nms_top_n=304, nms_chunk=256,
-                   compute_dtype=torch.bfloat16)
+                   compute_dtype=torch.bfloat16, fused_block1=args.fused_block1)
     model = MNC(arch, device="cuda", seed=0)
     post = PostCfg.from_cfg(dets_per_class=16)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -104,7 +106,7 @@ def main() -> None:
             totals[name] = totals.get(name, 0.0) + e0.elapsed_time(e1) / args.iters
     total = sum(totals.values())
     print(f"stage stream times per request of {args.batch} canvases "
-          f"(mean of {args.iters}, CUDA events):")
+          f"(mean of {args.iters}, CUDA events; fused_block1={args.fused_block1}):")
     for name, ms in totals.items():
         print(f"  {name:22s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
     print(f"  {'total':22s} {total:9.3f} ms")

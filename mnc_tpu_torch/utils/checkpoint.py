@@ -1,12 +1,16 @@
-"""The weight bridge: JAX param trees and ``save_npz`` files → the port's
-``state_dict``.
+"""The weight bridge, both ways: JAX param trees and ``save_npz`` files ↔ the
+port's ``state_dict``, and an npz save/load of the train state.
 
 The JAX package stores conv kernels HWIO and Dense kernels (in, out); the
 port's ``nn.Conv2d`` weights are OIHW and ``nn.Linear`` weights (out, in).
 Both packages flatten NHWC into ``fc_mask`` and ``fc6``, so a Dense kernel
 needs only a transpose, with no row permutation.  Nothing here imports the
 JAX package: ``load_npz`` reads the flat npz that
-``mnc_tpu.utils.checkpoint.save_npz`` writes with numpy alone.
+``mnc_tpu.utils.checkpoint.save_npz`` writes with numpy alone, and
+``save_train_state`` writes the parameters under the same flat names
+(``params/<module>/<layer>/kernel|bias`` in JAX's layout), so that package's
+``load_npz`` reads them back; the step and the solver state ride along under
+``__meta__/`` and ``__opt__/`` names.  Orbax directories are not ported.
 """
 
 from __future__ import annotations
@@ -58,3 +62,60 @@ def load_npz(path: str) -> tuple[dict, dict]:
                 d = d.setdefault(p, {})
             d[parts[-1]] = v
     return params, meta
+
+
+def jax_params_from_state_dict(state_dict: dict) -> dict:
+    """The reverse bridge: a ``state_dict`` (or any ``{"module.layer.weight"
+    | ".bias": tensor}`` mapping, e.g. of gradients) → nested
+    ``{"params": {module: {layer: {"kernel", "bias"}}}}`` of f32 numpy
+    arrays in the JAX package's layout (conv HWIO, Dense (in, out))."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        module, layer, kind = name.split(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if kind == "weight":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        leaf = tree.setdefault(module, {}).setdefault(layer, {})
+        leaf["kernel" if kind == "weight" else "bias"] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+def _flatten(prefix: str, tree, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(f"{prefix}/{k}", v, out)
+    else:
+        out[prefix] = tree
+
+
+def save_train_state(path: str, state) -> None:
+    """``TrainState`` → one npz: the parameters as ``save_npz`` names them,
+    the momentum traces (and ``iter_size`` accumulators) under ``__opt__/``,
+    the step and the solver's counters under ``__meta__/``."""
+    flat: dict = {}
+    _flatten("params", jax_params_from_state_dict(state.model.state_dict())["params"], flat)
+    opt = state.opt.state_dict()
+    _flatten("__opt__/trace", jax_params_from_state_dict(opt["trace"])["params"], flat)
+    if opt["acc"]:
+        _flatten("__opt__/acc", jax_params_from_state_dict(opt["acc"])["params"], flat)
+    flat["__meta__/step"] = np.asarray(state.step)
+    flat["__meta__/opt_count"] = np.asarray(opt["count"])
+    flat["__meta__/opt_mini_step"] = np.asarray(opt["mini_step"])
+    flat["__meta__/bbox_pred_normalized"] = np.asarray(True)
+    np.savez(path, **flat)
+
+
+def load_train_state(path: str, state) -> None:
+    """Restore what :func:`save_train_state` wrote into ``state`` in place
+    (its model and solver must have the same shapes)."""
+    tree, meta = load_npz(path)
+    opt_tree = tree.pop("__opt__", {})
+    state.model.load_state_dict(state_dict_from_jax(tree))
+    dev = state.model.device
+    opt = {"count": meta["opt_count"], "mini_step": meta["opt_mini_step"],
+           "trace": {k: v.to(dev) for k, v in state_dict_from_jax(
+               {"params": opt_tree["trace"]}).items()},
+           "acc": ({k: v.to(dev) for k, v in state_dict_from_jax(
+               {"params": opt_tree["acc"]}).items()} if "acc" in opt_tree else None)}
+    state.opt.load_state_dict(opt)
+    state.step = int(meta["step"])

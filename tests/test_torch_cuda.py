@@ -7,8 +7,10 @@ This file imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 
 Tolerances: NMS keeps identical; RoI warp ≤1e-5·max|F| in f32 and
-2 bf16 ulps of max|F| in bf16; paste bit for bit except pixels whose f32
-product lies within 1e-5 of the threshold.
+2 bf16 ulps of max|F| in bf16; its gradients ≤1e-5 (features) and ≤1e-4
+(boxes) of each gradient's max in f32; paste bit for bit except pixels whose
+f32 product lies within 1e-5 of the threshold; block 1 within
+``block1_tolerance`` with at least 0.999 of the elements bit-identical.
 """
 
 import pytest
@@ -50,6 +52,79 @@ def test_roi_warp_kernel_matches_plain(gen, dtype, b, n, h, w, c, out_hw):
     scale = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7
     err = (got.float() - want.float()).abs().max().item()
     assert err <= scale * feat.float().abs().max().item()
+
+
+@pytest.mark.parametrize("b,n,h,w,c,out_hw", [(1, 1, 3, 5, 8, (1, 1)),
+                                              (2, 37, 12, 16, 24, (7, 5)),
+                                              (2, 128, 40, 64, 512, (14, 14))])
+def test_roi_warp_bwd_kernel_matches_plain(gen, b, n, h, w, c, out_hw):
+    """Kernel A′ through ``roi_warp`` (the autograd Function) against
+    autograd through the plain version, with boxes on integer bin centers
+    and over the map's edge among them."""
+    from mnc_tpu_torch.ops.roi_warp import roi_warp
+
+    feat = torch.randn(b, h, w, c, generator=gen, device="cuda")
+    rois = _boxes(gen, (b, n), 16 * h, 16 * w, hi=16 * h)
+    rois[0, 0] = torch.tensor([16.0, 16.0, 16.0 + 16 * out_hw[1] - 1, 16.0 + 16 * out_hw[0] - 1],
+                              device="cuda")
+    rois[-1, -1] = torch.tensor([-16.0, 16.0 * (h - 1), 16.0 * out_hw[1] - 17,
+                                 16.0 * (h - 1) + 16 * out_hw[0] - 1], device="cuda")
+    cot = torch.randn(b, n, *out_hw, c, generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    f, r = feat.clone().requires_grad_(), rois.clone().requires_grad_()
+    roi_warp(f, r, out_hw, 1.0 / 16).backward(cot)
+    assert kernels.roi_warp_cuda.launches == 1 and kernels.roi_warp_bwd_cuda.launches == 1
+    fp, rp = feat.clone().requires_grad_(), rois.clone().requires_grad_()
+    wf, wr = torch.autograd.grad(roi_warp_plain(fp, rp, out_hw, 1.0 / 16), (fp, rp), cot)
+    assert (f.grad - wf).abs().max().item() <= 1e-5 * wf.abs().max().item()
+    assert (r.grad - wr).abs().max().item() <= 1e-4 * wr.abs().max().item()
+
+
+def test_bin_centers_on_the_card_equal_the_cpu(gen):
+    """The centers divide by a tensor: by a Python scalar the card would
+    multiply by a reciprocal and land an ulp off the CPU's (and JAX's)
+    quotient, off the integer where the hat's gradient jumps."""
+    from mnc_tpu_torch.ops.roi_warp import bin_centers
+
+    rois = torch.tensor([[[32.0, 16.0, 255.0, 239.0], [3.0, 7.0, 300.5, 99.25]]], device="cuda")
+    for axis in (0, 1):
+        assert torch.equal(bin_centers(rois, 14, 1.0 / 16, axis).cpu(),
+                           bin_centers(rois.cpu(), 14, 1.0 / 16, axis))
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 2, 3), (3, 40, 50, 3), (2, 640, 1024, 3)])
+def test_block1_kernel_matches_plain(gen, shape):
+    from mnc_tpu_torch.ops.block1 import (block1_plain, block1_tolerance, conv_relu_plain,
+                                          fused_block1)
+
+    w1 = torch.randn(64, 3, 3, 3, generator=gen, device="cuda") * 0.1
+    b1 = torch.randn(64, generator=gen, device="cuda")
+    w2 = torch.randn(64, 64, 3, 3, generator=gen, device="cuda") * 0.05
+    b2 = torch.randn(64, generator=gen, device="cuda")
+    x = torch.randn(shape, generator=gen, device="cuda") * 50
+    kernels.reset_launch_counts()
+    got = fused_block1(x, w1, b1, w2, b2).float()
+    assert kernels.block1_cuda.launches == 1
+    want = block1_plain(x, w1, b1, w2, b2).float()
+    o1_max = conv_relu_plain(x.to(torch.bfloat16).permute(0, 3, 1, 2), w1, b1).float().max()
+    assert ((got - want).abs() <= block1_tolerance(want, o1_max.item(), w2, b2)).all()
+    assert (got == want).float().mean().item() >= 0.999
+
+
+def test_block1_kernel_rejects_odd_sizes(gen):
+    bf = torch.bfloat16
+    z = lambda *s: torch.zeros(*s, device="cuda", dtype=bf)  # noqa: E731
+    with pytest.raises(ValueError, match="even H, W"):
+        kernels.block1_cuda(z(1, 7, 8, 3), z(3, 3, 3, 64), z(64), z(3, 3, 64, 64), z(64))
+
+
+def test_nms_kernel_train_shape(gen):
+    """The train step's proposal NMS: 2 problems of 12000, stop at 2000."""
+    boxes = _boxes(gen, (2, 12000), 640, 1024, lo=16.0, hi=300.0)
+    valid = torch.arange(12000, device="cuda").expand(2, 12000) < 11000
+    got = kernels.nms_keep_cuda(boxes, valid.contiguous(), 0.7, 2000)
+    assert torch.equal(got, nms_keep_plain(boxes, valid, 0.7, 2000))
+    assert int(got.sum(1).max()) <= 2000
 
 
 def test_roi_warp_kernel_rejects_bad_inputs(gen):

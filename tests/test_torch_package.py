@@ -27,7 +27,11 @@ def test_port_imports_no_jax_and_no_mnc_tpu():
     """Run in a fresh interpreter: tests/conftest.py has imported jax here."""
     mods = _port_modules()
     assert {"mnc_tpu_torch.kernels._build", "mnc_tpu_torch.models.mnc",
-            "mnc_tpu_torch.pipeline.inference"} <= set(mods)
+            "mnc_tpu_torch.pipeline.inference", "mnc_tpu_torch.ops.block1",
+            "mnc_tpu_torch.ops.losses", "mnc_tpu_torch.train.targets",
+            "mnc_tpu_torch.train.optim", "mnc_tpu_torch.train.loop",
+            "mnc_tpu_torch.data.synthetic", "mnc_tpu_torch.tools.train_net",
+            "mnc_tpu_torch.profile_training"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -51,9 +55,35 @@ def test_entry_points_raise_without_gpu():
                    post_nms_top_n=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MNC(arch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MNC(arch, train=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_train_net_refuses_to_run_without_gpu(tmp_path):
+    """The training entry point runs on the card unless --device cpu is
+    given: without a GPU it raises, it does not move to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU behaviour cannot be shown")
+    from mnc_tpu_torch import config as cfg
+    from mnc_tpu_torch.tools import train_net
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_net.main(["--imdb", "synthetic_4", "--iters", "1"])
+    small = ["NET.FC_DIM", "32", "NET.MASK_FC_DIM", "16", "NET.COMPUTE_DTYPE", "float32",
+             "NET.N_STAGES", "3", "STATIC.TRAIN_PRE_NMS_TOP_N", "64",
+             "STATIC.TRAIN_POST_NMS_TOP_N", "16", "TRAIN.BATCH_SIZE", "16"]
+    saved = cfg.cfg.clone()
+    try:
+        with pytest.warns(UserWarning, match="CAPPED"):
+            rc = train_net.main(["--imdb", "synthetic_4", "--iters", "2", "--device", "cpu",
+                                 "--out", str(tmp_path), "--set", *small])
+    finally:
+        cfg.cfg.clear()
+        cfg.cfg.update(saved)
+    assert rc == 0 and (tmp_path / "state_2.npz").exists()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -68,8 +98,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.paste_binarize_cuda(torch.zeros(1, 4, 3), torch.zeros(1, 3, 3),
                                     torch.zeros(1, 3, 4), 0.4)
-    assert kernels.launch_counts() == {"roi_warp_cuda": 0, "nms_keep_cuda": 0,
-                                       "paste_binarize_cuda": 0}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.roi_warp_bwd_cuda(torch.zeros(1, 2, 2, 2, 8), torch.zeros(1, 4, 4, 8),
+                                  torch.zeros(1, 2, 4), 0.25)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bf = torch.bfloat16
+        kernels.block1_cuda(torch.zeros(1, 8, 8, 3, dtype=bf), torch.zeros(3, 3, 3, 64, dtype=bf),
+                            torch.zeros(64, dtype=bf), torch.zeros(3, 3, 64, 64, dtype=bf),
+                            torch.zeros(64, dtype=bf))
+    assert kernels.launch_counts() == {"roi_warp_cuda": 0, "roi_warp_bwd_cuda": 0,
+                                       "nms_keep_cuda": 0, "paste_binarize_cuda": 0,
+                                       "block1_cuda": 0}
 
 
 def _keys(tree, prefix=""):
@@ -125,8 +164,29 @@ def test_arch_and_post_from_cfg():
               "suppress_untrainable_anchors"):
         assert getattr(a, f) == getattr(ja, f), f
     assert a.compute_dtype == torch.bfloat16
+    t, jt = MNCArch.from_cfg(train=True), JArch.from_cfg(train=True)
+    for f in ("pre_nms_top_n", "post_nms_top_n", "rpn_nms_thresh", "rpn_min_size",
+              "nms_chunk", "trunk_frozen", "fused_block1", "test_bbox_reg"):
+        assert getattr(t, f) == getattr(jt, f), f
+    assert (t.pre_nms_top_n, t.post_nms_top_n, t.trunk_frozen) == (12000, 2000, 2)
+    assert not t.fused_block1 and not a.fused_block1
+
     p, jp = PostCfg.from_cfg(dets_per_class=16), JPostCfg.from_cfg(dets_per_class=16)
     for f in ("nms_thresh", "dets_per_class", "max_per_image", "use_mask_merge",
               "mask_merge_iou", "vote_top_k", "vote_boxes", "vote_both_passes",
               "score_thresh", "paste", "binarize_thresh"):
         assert getattr(p, f) == getattr(jp, f), f
+
+
+def test_from_cfg_honours_fused_block1():
+    from mnc_tpu_torch import config as cfg
+    from mnc_tpu_torch.models.mnc import MNCArch
+
+    saved = cfg.cfg.clone()
+    try:
+        cfg.cfg_from_list(["NET.FUSED_BLOCK1", "True", "NET.TRUNK_FROZEN", "0"])
+        a = MNCArch.from_cfg(train=True)
+        assert a.fused_block1 and a.trunk_frozen == 0
+    finally:
+        cfg.cfg.clear()
+        cfg.cfg.update(saved)
