@@ -8,9 +8,12 @@ Phases, each printing its lines before the two JSON lines at the end:
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   — compiles every kernel from ``mnc_tpu_torch/csrc`` (nvcc, sm_90a).
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes of the serving path, then timed (CUDA events, after warm-up)
-   beside the plain version and, where one PyTorch call computes the same
-   function, that call.
+   the shapes of the serving and training paths (NMS also on chains, stops
+   inside a chunk and interleaved invalid boxes at full K; the RoI-warp
+   backward also on many small boxes, the full canvas and boxes outside the
+   map), then timed (CUDA events, after warm-up) beside the plain version
+   and, where one PyTorch call computes the same function, that call.  NMS
+   is timed, bounded and given its latency floor per shape.
 4. main paths, each with the launch counters zeroed just before and read
    just after:
    a. serving — batched 5-stage VGG-16 at full width (640×1024 canvas, FC
@@ -134,26 +137,51 @@ def check_roi_warp(g):
                 bound_ms=bms, bound_by=by, library_ms=l_ms)
 
 
+def _bwd_box_sets(g, b, n):
+    """The RoI sets kernel A' is held on: the train step's mix, many small
+    boxes on the same few cells, and the map's edge cases."""
+    mixed = torch.stack([random_boxes(g, n, *CANVAS) for _ in range(b)])
+    # boxes whose bin centers are integers (span 14 cells from a cell corner),
+    # one of them hanging over the map's edge: the subgradient's tie cases
+    mixed[0, 0] = torch.tensor([32.0, 16.0, 255.0, 239.0])
+    mixed[1, 0] = torch.tensor([-16.0, 496.0, 207.0, 719.0])
+    # 1-12 px boxes with their centers inside one 64 x 64 px patch (4 x 4 cells)
+    c = 300.0 + torch.rand(b, n, 2, generator=g, device="cuda") * 64.0
+    half = 0.5 + torch.rand(b, n, 2, generator=g, device="cuda") * 5.5
+    small = torch.cat([c - half, c + half], -1)
+    edge = torch.stack([random_boxes(g, n, *CANVAS) for _ in range(b)])
+    h, w = CANVAS
+    special = [[0.0, 0.0, w - 1.0, h - 1.0],          # the full canvas: 28 x 28 cells
+               [100.0, 100.0, 100.0, 100.0],          # 1 px: every bin on one cell
+               [-500.0, -500.0, -300.0, -300.0],      # wholly outside, top left
+               [w + 900.0, 100.0, w + 1000.0, 200.0],  # wholly outside, right
+               [-40.0, -40.0, 60.0, 60.0],            # over the top-left corner
+               [w - 60.0, h - 60.0, w + 40.0, h + 40.0],  # over the far corner
+               [-30.0, 200.0, w + 30.0, 215.0]]       # wider than the map, one cell high
+    for i, box in enumerate(special):
+        edge[i % b, 1 + i // b] = torch.tensor(box)
+    return {"mixed 16-500 px": mixed, "small boxes on 4x4 cells": small,
+            "full canvas, 1 px, outside": edge}
+
+
 def check_roi_warp_bwd(g):
     """Kernel A' against autograd through roi_warp_plain at the train step's
-    shapes.  f32: tight.  bf16: tight against the f32 plain gradient of the
-    same bf16-valued inputs (the kernel accumulates in f32 and rounds once),
-    loose against the bf16 plain gradient (which, like JAX's, runs through
-    bf16-rounded hats and a bf16 intermediate)."""
+    shapes, on three RoI sets.  f32: tight.  bf16: tight against the f32 plain
+    gradient of the same bf16-valued inputs (the kernel accumulates in f32 and
+    rounds once), loose against the bf16 plain gradient (which, like JAX's,
+    runs through bf16-rounded hats and a bf16 intermediate).  d rois must be
+    bit-equal between two runs."""
     from mnc_tpu_torch.kernels import roi_warp_bwd_cuda
     from mnc_tpu_torch.ops.roi_warp import bin_centers, roi_warp_plain
     import torch.nn.functional as F
 
     b, n, (h, w, c), out_hw, s = 2, 128, (40, 64, 512), (14, 14), 1.0 / 16
     feat32 = torch.randn(b, h, w, c, generator=g, device="cuda")
-    rois = torch.stack([random_boxes(g, n, *CANVAS) for _ in range(b)])
-    # boxes whose bin centers are integers (span 14 cells from a cell corner),
-    # one of them hanging over the map's edge: the subgradient's tie cases
-    rois[0, 0] = torch.tensor([32.0, 16.0, 255.0, 239.0])
-    rois[1, 0] = torch.tensor([-16.0, 496.0, 207.0, 719.0])
     gout32 = torch.randn(b, n, *out_hw, c, generator=g, device="cuda")
+    f, go = feat32.to(torch.bfloat16), gout32.to(torch.bfloat16)
+    sets = _bwd_box_sets(g, b, n)
 
-    def plain_grads(f, go):
+    def plain_grads(rois, f, go):
         fp, rp = f.clone().requires_grad_(), rois.clone().requires_grad_()
         return torch.autograd.grad(roi_warp_plain(fp, rp, out_hw, s), (fp, rp), go)
 
@@ -170,20 +198,31 @@ def check_roi_warp_bwd(g):
             errs.append(err)
         return errs
 
-    got32 = roi_warp_bwd_cuda(gout32, feat32, rois, s)
-    compare("f32", got32, plain_grads(feat32, gout32), 1e-5, 1e-4)
-    f, go = feat32.to(torch.bfloat16), gout32.to(torch.bfloat16)
-    got16 = roi_warp_bwd_cuda(go, f, rois, s)
-    want_f32 = plain_grads(f.float(), go.float())
-    # one rounding to bf16 of an f32-accurate sum: at most half an ulp, 2^-8
-    # of the value, plus the f32 sums' own 1e-5
-    err16 = compare("bf16 vs f32 plain", got16, want_f32, 2.0 ** -8 + 1e-5, 1e-4)
-    compare("bf16 vs bf16 plain", got16, plain_grads(f, go), 2.0 ** -5, 0.05)
-    again = roi_warp_bwd_cuda(go, f, rois, s)
-    if not torch.equal(again[1], got16[1]):
-        raise AssertionError("roi_warp_bwd: d rois differs between two runs")
+    err16, set_ms = {}, {}
+    for label, rois in sets.items():
+        got32 = roi_warp_bwd_cuda(gout32, feat32, rois, s)
+        compare(f"[{label}] f32", got32, plain_grads(rois, feat32, gout32), 1e-5, 1e-4)
+        got16 = roi_warp_bwd_cuda(go, f, rois, s)
+        # one rounding to bf16 of an f32-accurate sum: at most half an ulp, 2^-8
+        # of the value, plus the f32 sums' own 1e-5
+        err16[label] = compare(f"[{label}] bf16 vs f32 plain", got16,
+                               plain_grads(rois, f.float(), go.float()),
+                               2.0 ** -8 + 1e-5, 1e-4)[0]
+        compare(f"[{label}] bf16 vs bf16 plain", got16, plain_grads(rois, f, go),
+                2.0 ** -5, 0.05)
+        for dt_label, args in (("f32", (gout32, feat32)), ("bf16", (go, f))):
+            again = roi_warp_bwd_cuda(*args, rois, s)
+            first = got32 if dt_label == "f32" else got16
+            if not torch.equal(again[1], first[1]):
+                raise AssertionError(f"roi_warp_bwd: d rois differs between two runs "
+                                     f"({label}, {dt_label})")
+        set_ms[label] = cuda_ms(lambda: roi_warp_bwd_cuda(go, f, rois, s))
+        log(f"kernel A' roi_warp_bwd [{label}]: d rois bit-equal between two runs; bf16 "
+            f"kernel_ms {set_ms[label]:.4f}")
 
-    k_ms = cuda_ms(lambda: roi_warp_bwd_cuda(go, f, rois, s))
+    main = "mixed 16-500 px"
+    rois = sets[main]
+    k_ms = set_ms[main]
     fp, rp = f.clone().requires_grad_(), rois.clone().requires_grad_()
     out = roi_warp_plain(fp, rp, out_hw, s)
     p_ms = cuda_ms(lambda: torch.autograd.grad(out, (fp, rp), go, retain_graph=True),
@@ -204,8 +243,8 @@ def check_roi_warp_bwd(g):
     # reads g, the features and the rois; writes d features and d rois
     bms, by = bound_ms(nbytes(go, f, rois) + nbytes(f, rois),
                        16.0 * b * n * out_hw[0] * out_hw[1] * c)
-    return dict(max_abs_err=err16[0], ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                library_ms=l_ms)
+    return dict(max_abs_err=err16[main], ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                library_ms=l_ms, ms_by_box_set=set_ms)
 
 
 def check_block1(g):
@@ -294,30 +333,109 @@ def _nms_case(g, p, k, cluster, invalid_frac, trailing):
     return boxes.contiguous(), valid.contiguous(), scores
 
 
+def _nms_stop(keep, top_n):
+    """(P,) index of the box at which each problem's scan stops."""
+    p, k = keep.shape
+    if top_n > 0:
+        return torch.where(keep.sum(1) >= top_n,
+                           (keep.cumsum(1) >= top_n).float().argmax(1), k - 1)
+    return torch.full((p,), k - 1, device=keep.device)
+
+
 def _nms_bound(boxes, valid, keep, top_n):
     """Bytes and the IoU work this data needs: each kept box i is compared
     with every box after it up to where the scan stops."""
-    p, k = keep.shape
+    k = keep.shape[1]
     ar = torch.arange(k, device=keep.device)
-    if top_n > 0:
-        stop = torch.where(keep.sum(1) >= top_n,
-                           (keep.cumsum(1) >= top_n).float().argmax(1), k - 1)
-    else:
-        stop = torch.full((p,), k - 1, device=keep.device)
+    stop = _nms_stop(keep, top_n)
     pairs = ((stop[:, None] - ar) * keep).clamp_min(0).sum().item()
     return bound_ms(nbytes(boxes, valid, keep), 16.0 * pairs)
 
 
+NMS_SHAPES = {  # label: (P, K, thresh, top_n, invalid boxes trailing)
+    "proposal": (4, 6000, 0.7, 304, True),
+    "per-class": (80, 304, 0.3, 0, False),
+    "train proposal": (2, 12000, 0.7, 2000, True)}
+
+
+def nms_step_latency_ms(p, k):
+    """The micro-check behind kernel B's latency floor: P problems of K
+    identical boxes.  Box 0 is kept and suppresses all others, so the scan
+    walks every chunk of 64 and each chunk is one dependent step with next
+    to no IoU work.  Returns (ms per chunk, chunks)."""
+    from mnc_tpu_torch.kernels import nms_keep_cuda
+
+    boxes = torch.tensor([10.0, 10.0, 50.0, 50.0], device="cuda").expand(p, k, 4).contiguous()
+    valid = torch.ones(p, k, dtype=torch.bool, device="cuda")
+    keep = nms_keep_cuda(boxes, valid, 0.5, 0)
+    if not (keep[:, 0].all() and int(keep.sum()) == p):
+        raise AssertionError("nms kernel: identical boxes must leave one keep per problem")
+    chunks = -(-k // 64)
+    return cuda_ms(lambda: nms_keep_cuda(boxes, valid, 0.5, 0)) / chunks, chunks
+
+
+def _nms_adversarial(g):
+    """(label, boxes (P, K, 4), valid (P, K), thresh, top_ns) at full K: what
+    a chunked scan gets wrong first."""
+    dev = "cuda"
+    cases = []
+    for k in (12000, 6001, 304):
+        # chain: box i suppresses only box i + 1 (IoU 81/121, two apart 61/141):
+        # keeps alternate across every chunk border, each diagonal tile needs
+        # as many rounds as it is long; an invalid box breaks the chain
+        x = 20.0 * torch.arange(k, device=dev, dtype=torch.float32)
+        chain = torch.stack([x, torch.zeros_like(x), x + 100.0, torch.full_like(x, 100.0)], -1)
+        valid = torch.ones(2, k, dtype=torch.bool, device=dev)
+        valid[1, 64] = valid[1, 191] = False
+        cases.append((f"chain K={k}", chain.expand(2, k, 4).contiguous(), valid, 0.5,
+                      (0, 33)))
+        # disjoint boxes: every valid box is a keep, so the stop falls where
+        # top_n says: last box of a chunk (64, 128), first (65, 129), middle,
+        # the very last box, and never
+        grid = torch.stack([150.0 * (torch.arange(k, device=dev) % 100),
+                            150.0 * (torch.arange(k, device=dev) // 100)], -1).float()
+        disjoint = torch.cat([grid, grid + 99.0], -1)[None].contiguous()
+        cases.append((f"disjoint K={k}", disjoint,
+                      torch.ones(1, k, dtype=torch.bool, device=dev), 0.7,
+                      (0, 1, 64, 65, 100, 128, 129, k - 1, k, k + 7)))
+        # the same with every third box invalid: the count skips them
+        cases.append((f"disjoint, every third invalid K={k}", disjoint,
+                      (torch.arange(k, device=dev) % 3 != 1)[None].contiguous(), 0.7,
+                      (0, 43, 44, 64, 86)))
+        # clustered boxes, invalid ones interleaved (the per-class layout at
+        # full K) and trailing, heavy suppression at a low threshold
+        for trailing in (False, True):
+            boxes, valid, _ = _nms_case(g, 2, k, cluster=max(k // 40, 4), invalid_frac=0.3,
+                                        trailing=trailing)
+            cases.append((f"clustered, invalid {'trailing' if trailing else 'interleaved'} "
+                          f"K={k}", boxes, valid, 0.3, (0, 63, 64, 65)))
+        dup = torch.tensor([10.0, 10.0, 50.0, 50.0], device=dev).expand(2, k, 4).contiguous()
+        valid = torch.ones(2, k, dtype=torch.bool, device=dev)
+        valid[1] = False
+        cases.append((f"identical boxes / all invalid K={k}", dup, valid, 0.5, (0, 1, 5)))
+    return cases
+
+
 def check_nms(g):
+    """Kernel B: keeps identical to nms_keep_plain at the three shapes of the
+    main paths and at the adversarial cases, with top_n and with the scan run
+    to its end; nms_indices on the card equal to the CPU with tied scores;
+    then time, bound and latency floor per shape."""
     from mnc_tpu_torch.kernels import nms_keep_cuda
     from mnc_tpu_torch.ops.nms import nms_indices, nms_keep_plain
 
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    bound_by = set()
-    for label, (p, k, thresh, top_n, trailing) in {
-            "proposal": (4, 6000, 0.7, 304, True),
-            "per-class": (80, 304, 0.3, 0, False),
-            "train proposal": (2, 12000, 0.7, 2000, True)}.items():
+    for label, boxes, valid, thresh, top_ns in _nms_adversarial(g):
+        kept = []
+        for tn in top_ns:
+            got = nms_keep_cuda(boxes, valid, thresh, tn)
+            if not torch.equal(got, nms_keep_plain(boxes, valid, thresh, tn)):
+                raise AssertionError(f"nms kernel keeps differ ({label}, top_n={tn})")
+            kept.append(int(got.sum()))
+        log(f"kernel B nms {label} P={boxes.shape[0]} thresh={thresh}: keeps identical for "
+            f"top_n {top_ns} ({kept} kept)")
+
+    shapes = {}
+    for label, (p, k, thresh, top_n, trailing) in NMS_SHAPES.items():
         boxes, valid, scores = _nms_case(g, p, k, cluster=max(k // 20, 4),
                                          invalid_frac=0.2, trailing=trailing)
         for tn in sorted({top_n, 0}):
@@ -340,14 +458,19 @@ def check_nms(g):
         p_ms = cuda_ms(lambda: nms_keep_plain(boxes, valid, thresh, top_n), iters=3,
                        warmup=1)
         bms, by = _nms_bound(boxes, valid, keep, top_n)
+        # the scan's latency floor: the chunks of 64 this data makes the longest
+        # problem walk, times one dependent step as the micro-check measures it
+        step_ms, all_chunks = nms_step_latency_ms(p, k)
+        chunks = int(_nms_stop(keep, top_n).max()) // 64 + 1
+        floor_ms = chunks * step_ms
         log(f"kernel B nms {label}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-            f"bound_ms {bms:.5f} ({by})")
-        total["ms"] += k_ms
-        total["plain_ms"] += p_ms
-        total["bound_ms"] += bms
-        bound_by.add(by)
-    return dict(max_abs_err=0.0, **total, bound_by="operations" if "operations" in bound_by
-                else "bytes", library_ms=None)
+            f"bound_ms {bms:.5f} ({by}); latency floor {floor_ms:.4f} ms = {chunks} of "
+            f"{all_chunks} chunks x {step_ms * 1e3:.3f} us per dependent step")
+        shapes[label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by, chunks=chunks,
+                             step_us=step_ms * 1e3, latency_floor_ms=floor_ms)
+    total = {key: sum(v[key] for v in shapes.values()) for key in ("ms", "plain_ms", "bound_ms")}
+    by = "operations" if any(v["bound_by"] == "operations" for v in shapes.values()) else "bytes"
+    return dict(max_abs_err=0.0, **total, bound_by=by, library_ms=None, shapes=shapes)
 
 
 def check_paste(g):

@@ -74,8 +74,10 @@ def roi_warp_bwd_cuda(grad_out: torch.Tensor, features: torch.Tensor, rois: torc
     features (B, H, W, C), both f32 or both bf16, rois (B, N, 4) f32 →
     (d features (B, H, W, C) in the feature dtype, d rois (B, N, 4) f32).
 
-    d features is summed with f32 atomics and cast once, so its last bits
-    vary from run to run; d rois is deterministic."""
+    d features is summed per RoI in registers, added to an f32 map with one
+    atomic per footprint cell and cast once, so its last bits vary from run
+    to run; d rois is reduced in a fixed order inside the kernel and is
+    deterministic."""
     _check(features, "features", (torch.float32, torch.bfloat16), 4)
     _check(grad_out, "grad_out", (features.dtype,), 5, features.device)
     _check(rois, "rois", (torch.float32,), 3, features.device)
@@ -88,32 +90,33 @@ def roi_warp_bwd_cuda(grad_out: torch.Tensor, features: torch.Tensor, rois: torc
     vec = 4 if features.dtype == torch.float32 else 8
     if c % vec:
         raise ValueError(f"channels ({c}) must be a multiple of {vec}")
+    if pw > 32 or ph + pw > 512:
+        raise ValueError(f"output size {(ph, pw)}: at most 32 columns and 512 rows + columns")
     dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=features.device)
-    part = torch.empty((b, n, ph, 4), dtype=torch.float32, device=features.device)
+    drois = torch.empty((b, n, 4), dtype=torch.float32, device=features.device)
     _launch("roi_warp_bwd", features.device, grad_out.data_ptr(), features.data_ptr(),
-            rois.data_ptr(), dfeat.data_ptr(), part.data_ptr(), b, h, w, c, n, ph, pw,
+            rois.data_ptr(), dfeat.data_ptr(), drois.data_ptr(), b, h, w, c, n, ph, pw,
             float(spatial_scale), 0 if features.dtype == torch.float32 else 1,
             _stream(features))
     roi_warp_bwd_cuda.launches += 1
-    return dfeat.to(features.dtype), part.sum(dim=2)
+    return dfeat.to(features.dtype), drois
 
 
 def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,
                   top_n: int = 0) -> torch.Tensor:
     """Greedy NMS keep masks: boxes (P, K, 4) f32 score-sorted, valid (P, K)
     bool → keep (P, K) bool.  ``top_n`` > 0 stops each scan after that many
-    keeps."""
+    keeps.  One launch, no scratch: the scan keeps its state in shared memory."""
     _check(boxes, "boxes", (torch.float32,), 3)
     _check(valid, "valid", (torch.bool,), 2, boxes.device)
     p, k, four = boxes.shape
     if four != 4 or tuple(valid.shape) != (p, k):
         raise ValueError(f"boxes {tuple(boxes.shape)} / valid {tuple(valid.shape)}")
-    words = -(-k // 64)
-    mask = torch.empty((p, k, words), dtype=torch.int64, device=boxes.device)
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must be 16-byte aligned")
     keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
-    _launch("nms", boxes.device, boxes.data_ptr(), valid.data_ptr(),
-            mask.data_ptr(), keep.data_ptr(), p, k, float(thresh), int(top_n),
-            _stream(boxes))
+    _launch("nms", boxes.device, boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            p, k, float(thresh), int(top_n), _stream(boxes))
     nms_keep_cuda.launches += 1
     return keep
 

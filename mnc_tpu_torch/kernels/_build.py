@@ -31,7 +31,7 @@ KERNEL_ABI = {
                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "roi_warp_bwd": ("roi_warp_bwd.cu", "mnc_roi_warp_bwd",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
-    "nms": ("nms.cu", "mnc_nms_keep", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    "nms": ("nms.cu", "mnc_nms_keep", [_P, _P, _P, _I, _I, _F, _I, _P]),
     "paste_binarize": ("paste.cu", "mnc_paste_binarize",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "block1": ("block1.cu", "mnc_block1", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),

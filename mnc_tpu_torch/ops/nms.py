@@ -4,9 +4,10 @@
 Same selections as the JAX package (and the reference ``cpu_nms``/
 ``gpu_nms``), batched over any leading dims so one launch serves every
 problem of a batch (B images at the proposal stage, B × classes per-class).
-A CUDA tensor goes to kernel B (``csrc/nms.cu``: a suppression bitmask, then
-an on-device greedy scan); a CPU tensor goes to :func:`nms_keep_plain`, the
-fixpoint formulation of the JAX package's ``nms_fixed``.
+A CUDA tensor goes to kernel B (``csrc/nms.cu``: one launch that scans each
+problem in chunks of 64 candidates on a thread-block cluster); a CPU tensor
+goes to :func:`nms_keep_plain`, the fixpoint formulation of the JAX package's
+``nms_fixed``.
 """
 
 from __future__ import annotations
@@ -79,9 +80,12 @@ def nms_tiled(boxes: torch.Tensor, valid: torch.Tensor, thresh,
     """Greedy NMS whose keep mask holds EXACTLY the first ``top_n`` greedy
     keeps in score order (the JAX ``nms_tiled`` contract).
 
-    The JAX package tiles the scan to bound an O(K²) f32 matrix; the port's
-    kernel keeps a K²/8-byte bitmask instead and simply stops its scan after
-    ``top_n`` keeps, so no tile size is needed.
+    The JAX package tiles the scan to bound an O(K²) f32 matrix.  The port's
+    kernel holds no matrix at all: it walks the boxes in chunks of 64, compares
+    a chunk only with the boxes kept so far (which live in shared memory),
+    resolves the chunk's own 64 × 64 tile in registers and stops at the
+    ``top_n``-th keep, also in the middle of a chunk; so no tile size is
+    needed.
     """
     return _nms_keep(boxes, valid, thresh, int(top_n))
 

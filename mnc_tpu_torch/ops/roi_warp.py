@@ -79,8 +79,9 @@ def roi_warp_plain(features: torch.Tensor, rois: torch.Tensor, out_hw,
 class RoIWarpFunction(torch.autograd.Function):
     """Kernel A forward, kernel A′ backward (CUDA tensors only).
 
-    The gradient to the features is summed with f32 atomics, so its last
-    bits vary from run to run; the gradient to the rois is deterministic.
+    The gradient to the features is summed per RoI in registers and added
+    to an f32 map with one atomic per cell the RoI touches, so its last bits
+    vary from run to run; the gradient to the rois is deterministic.
     Subgradients follow the hat form max(0, 1 - |c - h|) as JAX (and
     :func:`interp_matrix` under autograd) differentiate it: a tap outside
     the map contributes nothing; at an integer coordinate c the tap at c has

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 at edge shapes that the serving path does not reach (``chip_smoke.py``
-covers the serving shapes and the whole pipeline, card against CPU).  Marked ``cuda``; without a GPU every test skips.
+covers the serving and training shapes and the whole pipeline, card against
+CPU), and at the cases a chunked NMS scan and a footprint-summing RoI-warp
+backward get wrong first.  Marked ``cuda``; without a GPU every test skips.
 
 This file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -80,6 +82,42 @@ def test_roi_warp_bwd_kernel_matches_plain(gen, b, n, h, w, c, out_hw):
     assert (r.grad - wr).abs().max().item() <= 1e-4 * wr.abs().max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["small", "edge"])
+def test_roi_warp_bwd_kernel_hard_box_sets(gen, kind, dtype):
+    """Kernel A′ where its sums collide or vanish: many 1-12 px RoIs on the
+    same 4 x 4 cells; the full canvas, a 1-px box, boxes wholly outside the
+    map and over its corners.  f32 within 1e-5 (dF) and 1e-4 (d rois) of each
+    gradient's max; bf16 against the f32 plain gradient of the same values
+    within one bf16 rounding (2^-8) plus that; d rois bit-equal on a rerun."""
+    b, n, h, w, c, out_hw = 2, 128, 40, 64, 512, (14, 14)
+    feat = torch.randn(b, h, w, c, generator=gen, device="cuda")
+    if kind == "small":
+        ctr = 300.0 + torch.rand(b, n, 2, generator=gen, device="cuda") * 64.0
+        half = 0.5 + torch.rand(b, n, 2, generator=gen, device="cuda") * 5.5
+        rois = torch.cat([ctr - half, ctr + half], -1).contiguous()
+    else:
+        rois = _boxes(gen, (b, n), 16 * h, 16 * w, hi=16 * h)
+        special = [[0.0, 0.0, 1023.0, 639.0], [100.0, 100.0, 100.0, 100.0],
+                   [-500.0, -500.0, -300.0, -300.0], [1924.0, 100.0, 2024.0, 200.0],
+                   [-40.0, -40.0, 60.0, 60.0], [964.0, 580.0, 1064.0, 680.0],
+                   [-30.0, 200.0, 1054.0, 215.0]]
+        for i, box in enumerate(special):
+            rois[i % b, i // b] = torch.tensor(box, device="cuda")
+    cot = torch.randn(b, n, *out_hw, c, generator=gen, device="cuda")
+    fp, rp = feat.to(dtype).float().requires_grad_(), rois.clone().requires_grad_()
+    wf, wr = torch.autograd.grad(roi_warp_plain(fp, rp, out_hw, 1.0 / 16), (fp, rp),
+                                 cot.to(dtype).float())
+    gf, gr = kernels.roi_warp_bwd_cuda(cot.to(dtype), feat.to(dtype), rois, 1.0 / 16)
+    tol_f = 1e-5 if dtype == torch.float32 else 2.0 ** -8 + 1e-5
+    assert (gf.float() - wf).abs().max().item() <= tol_f * wf.abs().max().item()
+    assert (gr - wr).abs().max().item() <= 1e-4 * wr.abs().max().item()
+    again = kernels.roi_warp_bwd_cuda(cot.to(dtype), feat.to(dtype), rois, 1.0 / 16)
+    assert torch.equal(again[1], gr)
+    if kind == "edge":  # nothing reaches a box that lies wholly outside the map
+        assert not gr[0, 1].any() and not gr[1, 1].any()
+
+
 def test_bin_centers_on_the_card_equal_the_cpu(gen):
     """The centers divide by a tensor: by a Python scalar the card would
     multiply by a reciprocal and land an ulp off the CPU's (and JAX's)
@@ -146,6 +184,62 @@ def test_nms_kernel_matches_plain(gen, p, k, thresh, top_n):
     assert torch.equal(got, want)
     if top_n:
         assert int(got.sum(1).max()) <= top_n
+
+
+@pytest.mark.parametrize("k", [304, 6001, 12000])
+def test_nms_kernel_chain_across_chunks(gen, k):
+    """Box i suppresses only box i + 1: keeps alternate across every chunk
+    border of the scan and each chunk's resolution takes as many rounds as it
+    is long; an invalid box breaks the chain.  K = 304 runs in one block, the
+    larger ones on a cluster."""
+    x = 20.0 * torch.arange(k, device="cuda", dtype=torch.float32)
+    boxes = torch.stack([x, torch.zeros_like(x), x + 100.0, torch.full_like(x, 100.0)], -1)
+    boxes = boxes.expand(2, k, 4).contiguous()
+    valid = torch.ones(2, k, dtype=torch.bool, device="cuda")
+    valid[1, 64] = valid[1, 191] = False
+    for top_n in (0, 33):
+        got = kernels.nms_keep_cuda(boxes, valid, 0.5, top_n)
+        assert torch.equal(got, nms_keep_plain(boxes, valid, 0.5, top_n))
+    full = kernels.nms_keep_cuda(boxes, valid, 0.5, 0)
+    assert torch.equal(full[0], torch.arange(k, device="cuda") % 2 == 0)
+    assert full[1, 63:67].tolist() == [False, False, True, False]
+
+
+@pytest.mark.parametrize("k", [304, 6001, 12000])
+@pytest.mark.parametrize("every_third_invalid", [False, True])
+def test_nms_kernel_stop_inside_a_chunk(gen, k, every_third_invalid):
+    """Disjoint boxes: every valid box is a keep, so the scan stops exactly
+    where top_n says: on the last box of a chunk, the first of the next, a
+    middle one, the very last box, and never."""
+    i = torch.arange(k, device="cuda")
+    xy = torch.stack([150.0 * (i % 100), 150.0 * (i // 100)], -1).float()
+    boxes = torch.cat([xy, xy + 99.0], -1)[None].contiguous()
+    valid = (i % 3 != 1)[None].contiguous() if every_third_invalid else torch.ones(
+        1, k, dtype=torch.bool, device="cuda")
+    n_valid = int(valid.sum())
+    for top_n in (0, 1, 43, 44, 64, 65, 100, 128, 129, n_valid - 1, n_valid, n_valid + 7):
+        got = kernels.nms_keep_cuda(boxes, valid, 0.7, top_n)
+        assert torch.equal(got, nms_keep_plain(boxes, valid, 0.7, top_n))
+        assert int(got.sum()) == (min(top_n, n_valid) if top_n else n_valid)
+
+
+@pytest.mark.parametrize("trailing", [False, True])
+def test_nms_kernel_heavy_suppression_full_k(gen, trailing):
+    """Clustered boxes at the train step's K with a low threshold (most boxes
+    are suppressed by keeps of earlier chunks), invalid boxes interleaved and
+    trailing, the stop around a chunk's border."""
+    k = 12000
+    centers = _boxes(gen, (2, 300), 640, 1024, lo=24.0, hi=300.0)
+    pick = torch.randint(0, 300, (2, k), generator=gen, device="cuda")
+    boxes = torch.gather(centers, 1, pick[..., None].expand(2, k, 4))
+    boxes = boxes + (torch.rand(2, k, 4, generator=gen, device="cuda") - 0.5) * 40.0
+    boxes[..., 2:] = torch.maximum(boxes[..., 2:], boxes[..., :2] + 1.0)
+    boxes = boxes.contiguous()
+    valid = (torch.arange(k, device="cuda").expand(2, k) < 8400 if trailing
+             else torch.rand(2, k, generator=gen, device="cuda") > 0.3).contiguous()
+    for top_n in (0, 63, 64, 65):
+        got = kernels.nms_keep_cuda(boxes, valid, 0.3, top_n)
+        assert torch.equal(got, nms_keep_plain(boxes, valid, 0.3, top_n))
 
 
 def test_nms_kernel_duplicates_and_all_invalid(gen):

@@ -141,3 +141,136 @@ def test_random_boxes_keep_count_matches_jax(rng):
     want = np.asarray(jnms.nms_fixed(jnp.asarray(boxes), jnp.asarray(valid), 0.7))
     got = nms.nms_fixed(torch.from_numpy(boxes), torch.from_numpy(valid), 0.7).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ---- kernel B's algorithm, step by step on the CPU --------------------------
+
+def chunked_scan_model(boxes, valid, thresh, top_n=0, cluster=1):
+    """Model of ``csrc/nms.cu``: 64-bit words (Python ints), one dependent step
+    per chunk of 64 candidates.  Returns (keep, rounds): the keep mask and the
+    most fixpoint rounds any chunk's diagonal resolution took.
+
+    Per chunk: (1) pull — every block of the cluster ORs "a keep of my share
+    suppresses candidate t" into a word, the words are ORed; (2) the diagonal
+    tile as column words (bit i of col[t]: valid i < t suppresses t); (4) keep
+    = alive & no kept earlier box of the chunk suppresses, iterated from keep
+    = alive until it stands still; the ``top_n`` count cuts the word after the
+    last wanted keep; (5) the keeps join the list, dealt over the cluster.
+    """
+    from mnc_tpu_torch.ops.bbox import bbox_overlaps
+
+    k = len(boxes)
+    tb = torch.from_numpy(np.ascontiguousarray(boxes))
+    sup = (bbox_overlaps(tb, tb) > float(np.float32(thresh))).numpy()
+    popcount = lambda x: bin(x).count("1")  # noqa: E731
+    keep = np.zeros(k, bool)
+    kept = []
+    rounds = 0
+    for c in range(-(-k // 64)):
+        lo, n = 64 * c, min(64, k - 64 * c)
+        valid_word = sum(1 << t for t in range(n) if valid[lo + t])
+        removed = 0
+        for rank in range(cluster):
+            word = 0
+            for i in kept[rank::cluster]:
+                word |= sum(1 << t for t in range(n) if sup[i, lo + t])
+            removed |= word
+        col = [sum(1 << i for i in range(t) if (valid_word >> i) & 1 and sup[lo + i, lo + t])
+               for t in range(n)]
+        alive = valid_word & ~removed
+        kw, r = alive, 0
+        while True:
+            r += 1
+            nw = alive & ~sum(1 << t for t in range(n) if col[t] & kw)
+            if nw == kw:
+                break
+            kw = nw
+        rounds = max(rounds, r)
+        done = False
+        if top_n > 0 and len(kept) + popcount(kw) >= top_n:
+            need = top_n - len(kept)
+            kw = sum(1 << t for t in range(n)
+                     if (kw >> t) & 1 and popcount(kw & ((1 << t) - 1)) < need)
+            done = True
+        for t in range(n):
+            if (kw >> t) & 1:
+                keep[lo + t] = True
+                kept.append(lo + t)
+        if done:
+            break
+    return keep, rounds
+
+
+def _hold_model(boxes, valid, thresh, top_n, cluster=1):
+    """The model against the plain twin and the JAX package; returns keep."""
+    got, _ = chunked_scan_model(boxes, valid, thresh, top_n, cluster)
+    plain = nms.nms_keep_plain(torch.from_numpy(boxes)[None], torch.from_numpy(valid)[None],
+                               thresh, top_n)[0].numpy()
+    np.testing.assert_array_equal(got, plain)
+    jb, jv = jnp.asarray(boxes), jnp.asarray(valid)
+    if top_n > 0:
+        want = np.asarray(jnms.nms_tiled(jb, jv, thresh, top_n, 32))
+    else:
+        want = np.asarray(jnms.nms_fixed(jb, jv, thresh))
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("k", [63, 64, 65, 129, 304])
+@pytest.mark.parametrize("layout", ["interleaved", "trailing"])
+def test_chunked_scan_model_matches_plain_and_jax(k, layout):
+    """K around the 64-bit word borders, exact score ties, invalid boxes
+    interleaved (the per-class layout) and trailing (the proposal layout),
+    the scan run to its end and stopped, one block and a cluster of 8."""
+    boxes, scores, valid = _case(100 + k, k, tie_levels=8, invalid=0.25)
+    if layout == "trailing":
+        valid = np.arange(k) < int(0.75 * k)
+    boxes, valid = _sorted(boxes, scores, valid)
+    for thresh in (0.3, 0.7):
+        full = _hold_model(boxes, valid, thresh, 0)
+        for top_n in (1, max(int(full.sum()) // 2, 1), int(full.sum()), int(full.sum()) + 5):
+            for cluster in (1, 8):
+                got = _hold_model(boxes, valid, thresh, top_n, cluster)
+                assert got.sum() == min(top_n, full.sum())
+
+
+@pytest.mark.parametrize("stop_at", [0, 63, 64, 100, 127, 128])
+def test_chunked_scan_model_stop_inside_a_chunk(stop_at):
+    """The top_n-th keep falls on the first, a middle and the last box of a
+    chunk: exactly the first top_n keeps, none of the next."""
+    boxes, scores, valid = _case(7, 200, invalid=0.0)
+    boxes, valid = _sorted(boxes, scores, valid)
+    # the boxes at the stops and right after them stand alone, so they are keeps
+    for i in (0, 1, 63, 64, 65, 100, 101, 127, 128, 129):
+        boxes[i] = [5000.0 + 200 * i, 5000.0, 5100.0 + 200 * i, 5100.0]
+    full = _hold_model(boxes, valid, 0.5, 0)
+    assert full[stop_at] and full[stop_at + 1]
+    top_n = int(full[:stop_at + 1].sum())
+    for cluster in (1, 8):
+        got = _hold_model(boxes, valid, 0.5, top_n, cluster)
+        assert got[stop_at] and not got[stop_at + 1:].any() and got.sum() == top_n
+
+
+@pytest.mark.parametrize("k", [129, 200])
+def test_chunked_scan_model_chain_across_chunks(k):
+    """Box i suppresses only box i + 1 (IoU 81/121 against 61/141 two apart):
+    keeps alternate along the whole length, across the chunk borders, and the
+    diagonal resolution needs as many rounds as the chunk is long."""
+    x = 20.0 * np.arange(k, dtype=np.float32)
+    boxes = np.stack([x, np.zeros_like(x), x + 100.0, np.full_like(x, 100.0)], 1)
+    valid = np.ones(k, bool)
+    got = _hold_model(boxes, valid, 0.5, 0)
+    np.testing.assert_array_equal(got, np.arange(k) % 2 == 0)
+    assert chunked_scan_model(boxes, valid, 0.5)[1] >= 63
+    # an invalid box breaks the chain: its successor is kept too
+    valid[64] = False
+    got = _hold_model(boxes, valid, 0.5, 0)
+    assert got[62] and not got[63] and not got[64] and got[65] and not got[66]
+    _hold_model(boxes, valid, 0.5, 40, cluster=8)
+
+
+def test_chunked_scan_model_duplicates_and_all_invalid():
+    boxes = np.tile(np.array([[10.0, 10.0, 50.0, 50.0]], np.float32), (130, 1))
+    got = _hold_model(boxes, np.ones(130, bool), 0.5, 0)
+    assert got[0] and got.sum() == 1
+    assert not _hold_model(boxes, np.zeros(130, bool), 0.5, 3).any()
