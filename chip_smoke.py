@@ -11,9 +11,12 @@ Phases, each printing its lines before the two JSON lines at the end:
    the shapes of the serving and training paths (NMS also on chains, stops
    inside a chunk and interleaved invalid boxes at full K; the RoI-warp
    backward also on many small boxes, the full canvas and boxes outside the
-   map), then timed (CUDA events, after warm-up) beside the plain version
-   and, where one PyTorch call computes the same function, that call.  NMS
-   is timed, bounded and given its latency floor per shape.
+   map; the paste also on boxes outside the canvas, of 1 px and over all of
+   it, with a negative threshold and a width that is not a multiple of 16),
+   then timed (CUDA events, after warm-up) beside the plain version and,
+   where one PyTorch call computes the same function, that call.  NMS, the
+   paste (N = 400, the serving request, and N = 100) and block 1 (B = 2 and
+   B = 4) are timed and bounded per shape.
 4. main paths, each with the launch counters zeroed just before and read
    just after:
    a. serving — batched 5-stage VGG-16 at full width (640×1024 canvas, FC
@@ -253,7 +256,8 @@ def check_block1(g):
     element within block1_tolerance (one bf16 ulp of the value before the
     bias add, plus the echo of a conv1_1 output that rounded the other way);
     the border rows and columns are held on their own; at the full canvas, at
-    a small shape whose tiles hang over the edges and on a constant image."""
+    a small shape whose tiles hang over the edges and on a constant image.
+    Then timed at the train step's B = 2 and the serving request's B = 4."""
     from mnc_tpu_torch.ops.block1 import (block1_plain, block1_tolerance, conv_relu_plain,
                                           fused_block1)
     import torch.nn.functional as F
@@ -287,32 +291,40 @@ def check_block1(g):
             raise AssertionError(f"block1 kernel disagrees with its plain version ({label})")
         if label == "full canvas":
             worst = err
-    x = torch.randn(2, *CANVAS, 3, generator=g, device="cuda") * 50
-    k_ms = cuda_ms(lambda: fused_block1(x, w1, b1, w2, b2), iters=10)
-    p_ms = cuda_ms(lambda: block1_plain(x, w1, b1, w2, b2), iters=5, warmup=1)
-    # the library yardstick: the trunk's unfused block 1 (cuDNN, bf16, channels-last)
+    # timed at the train step's B = 2 and the serving request's B = 4
     bf = torch.bfloat16
-    xn = x.to(bf).permute(0, 3, 1, 2)
     cw1, cw2 = (t.to(bf).contiguous(memory_format=torch.channels_last) for t in (w1, w2))
     cb1, cb2 = b1.to(bf), b2.to(bf)
-
-    def unfused():
-        y = F.relu(F.conv2d(xn, cw1, cb1, padding=1))
-        return F.max_pool2d(F.relu(F.conv2d(y, cw2, cb2, padding=1)), 2, 2)
-
-    l_ms = cuda_ms(unfused, iters=10)
-    lib_diff = (unfused().permute(0, 2, 3, 1).float()
-                - fused_block1(x, w1, b1, w2, b2).float()).abs().max().item()
-    log(f"kernel D block1 B=2 {CANVAS}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-        f"library_ms(unfused cuDNN block) {l_ms:.4f} (unfused vs kernel max diff "
-        f"{lib_diff:.3e})")
-    bsz, hh, ww = 2, *CANVAS
-    out_bytes = bsz * (hh // 2) * (ww // 2) * 64 * 2
     w_bytes = (27 * 64 + 576 * 64 + 128) * 2
-    bms, by = bound_ms(bsz * hh * ww * 3 * 2 + w_bytes + out_bytes,
-                       2.0 * bsz * hh * ww * 64 * (27 + 576), BF16_FLOP_PER_S)
-    return dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                library_ms=l_ms)
+    shapes = {}
+    for bsz in (2, 4):
+        x = torch.randn(bsz, *CANVAS, 3, generator=g, device="cuda") * 50
+        k_ms = cuda_ms(lambda: fused_block1(x, w1, b1, w2, b2), iters=10)
+        p_ms = cuda_ms(lambda: block1_plain(x, w1, b1, w2, b2), iters=3, warmup=1)
+        # the library yardstick: the trunk's unfused block 1 (cuDNN, bf16, channels-last)
+        xn = x.to(bf).permute(0, 3, 1, 2)
+
+        def unfused():
+            y = F.relu(F.conv2d(xn, cw1, cb1, padding=1))
+            return F.max_pool2d(F.relu(F.conv2d(y, cw2, cb2, padding=1)), 2, 2)
+
+        l_ms = cuda_ms(unfused, iters=10)
+        lib_diff = (unfused().permute(0, 2, 3, 1).float()
+                    - fused_block1(x, w1, b1, w2, b2).float()).abs().max().item()
+        hh, ww = CANVAS
+        out_bytes = bsz * (hh // 2) * (ww // 2) * 64 * 2
+        bms, by = bound_ms(bsz * hh * ww * 3 * 2 + w_bytes + out_bytes,
+                           2.0 * bsz * hh * ww * 64 * (27 + 576), BF16_FLOP_PER_S)
+        log(f"kernel D block1 B={bsz} {CANVAS}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+            f"library_ms(unfused cuDNN block) {l_ms:.4f} (unfused vs kernel max diff "
+            f"{lib_diff:.3e}) bound_ms {bms:.4f} ({by}, {bms / k_ms:.0%} of it)")
+        shapes[f"B={bsz}"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms,
+                                  bound_by=by)
+        del x, xn
+    main = shapes["B=2"]
+    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shapes=shapes)
 
 
 def _nms_case(g, p, k, cluster, invalid_frac, trailing):
@@ -473,36 +485,90 @@ def check_nms(g):
     return dict(max_abs_err=0.0, **total, bound_by=by, library_ms=None, shapes=shapes)
 
 
-def check_paste(g):
-    from mnc_tpu_torch.kernels import paste_binarize_cuda
-    from mnc_tpu_torch.ops.masks import _paste_axis_weights, paste_binarize_plain
+PASTE_SHAPES = {"serving request": 400, "N=100": 100}  # label: detections N (M = 21)
 
-    n, m, (h, w), thresh = 100, 21, CANVAS, 0.4
-    boxes = random_boxes(g, n, h, w, lo=20.0, hi=500.0)
-    masks = torch.sigmoid(2 * torch.randn(n, m, m, generator=g, device="cuda"))
+
+def _paste_inputs(g, boxes, h, w, m=21):
+    """Kernel C's operands for (N, 4) boxes: wy (N, H, M), masks, wxt (N, M,
+    W) and wx (N, W, M)."""
+    from mnc_tpu_torch.ops.masks import _paste_axis_weights
+
+    masks = torch.sigmoid(2 * torch.randn(boxes.shape[0], m, m, generator=g, device="cuda"))
     wy = _paste_axis_weights(boxes[:, 1], boxes[:, 3], m, h).contiguous()
     wx = _paste_axis_weights(boxes[:, 0], boxes[:, 2], m, w)
-    wxt = wx.transpose(1, 2).contiguous()
-    got = paste_binarize_cuda(wy, masks, wxt, thresh)
+    return wy, masks, wx.transpose(1, 2).contiguous(), wx
+
+
+def _paste_edge_boxes(g, h, w):
+    """Boxes wholly outside the canvas, of 1 px, over the full canvas and
+    beyond it, on its edges, and a few random ones."""
+    special = [[-500.0, -500.0, -300.0, -300.0], [w + 100.0, 10.0, w + 300.0, 200.0],
+               [10.0, h + 50.0, 200.0, h + 300.0], [-90.0, 30.0, -1.0, 80.0],
+               [100.0, 100.0, 100.0, 100.0], [300.5, 200.25, 300.5, 200.25],
+               [0.0, 0.0, 0.0, 0.0], [w - 1.0, h - 1.0, w - 1.0, h - 1.0],
+               [0.0, 0.0, w - 1.0, h - 1.0], [-40.0, -40.0, w + 40.0, h + 40.0],
+               [-20.0, 5.0, 7.0, 30.0], [w - 9.0, h - 17.0, w + 30.0, h + 2.0],
+               [15.0, 0.0, 17.0, h - 1.0], [0.0, 31.0, w - 1.0, 33.0]]
+    boxes = torch.tensor(special, device="cuda")
+    return torch.cat([boxes, random_boxes(g, 18, h, w, lo=1.0, hi=40.0)])
+
+
+def _paste_agrees(label, got, wy, masks, wxt, thresh):
+    """Every pixel equal to the f32 product's binarization, except within 1e-5
+    of the threshold (the order of the f32 sums differs); returns that worst
+    |product - threshold| of a differing pixel."""
     prod = torch.bmm(torch.bmm(wy, masks), wxt)
     mism = got != (prod > thresh)
     worst = (prod[mism] - thresh).abs().max().item() if mism.any() else 0.0
-    log(f"kernel C paste N={n} {h}x{w}: {int(mism.sum())} pixels differ from the f32 "
-        f"product, all within {worst:.2e} of the threshold (tolerance 1e-5)")
-    if worst > 1e-5:
-        raise AssertionError("paste kernel disagrees with its plain version")
-    k_ms = cuda_ms(lambda: paste_binarize_cuda(wy, masks, wxt, thresh))
-    p_ms = cuda_ms(lambda: paste_binarize_plain(wy, masks, wxt, thresh))
-    l_ms = cuda_ms(lambda: torch.einsum("nhp,npq,nwq->nhw", wy, masks, wx) > thresh)
-    log(f"kernel C paste: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-        f"library_ms(einsum) {l_ms:.4f}")
-    rows = (wy != 0).any(-1).sum(-1).double()  # canvas rows inside each box
-    cols = (wxt != 0).any(-2).sum(-1).double()
-    flops = (2.0 * m * m * rows + 2.0 * m * rows * cols).sum().item()
-    bms, by = bound_ms(nbytes(wy, masks, wxt, got), flops)
+    outside = ~((wy != 0).any(-1)[:, :, None] & (wxt != 0).any(-2)[:, None, :])
+    const_ok = bool((got[outside] == (0.0 > thresh)).all())
+    log(f"kernel C paste {label} N={wy.shape[0]} {wy.shape[1]}x{wxt.shape[2]} "
+        f"thresh={thresh}: {int(mism.sum())} pixels differ from the f32 product, all within "
+        f"{worst:.2e} of the threshold (tolerance 1e-5); pixels outside the box "
+        f"{'all' if const_ok else 'NOT all'} {0.0 > thresh}")
+    if worst > 1e-5 or not const_ok:
+        raise AssertionError(f"paste kernel disagrees with its plain version ({label})")
+    return worst
+
+
+def check_paste(g):
+    """Kernel C against the f32 product: the serving request's N = 400 and
+    N = 100 at 640x1024, then edge boxes with a positive and a negative
+    threshold and a canvas width that is not a multiple of 16; time, plain
+    and library time and byte bound per shape."""
+    from mnc_tpu_torch.kernels import paste_binarize_cuda
+    from mnc_tpu_torch.ops.masks import paste_binarize_plain
+
+    (h, w), m, thresh = CANVAS, 21, 0.4
+    for label, (hh, ww) in (("edge boxes", CANVAS), ("W % 16 != 0", (97, 203))):
+        ins = _paste_inputs(g, _paste_edge_boxes(g, hh, ww), hh, ww, m)[:3]
+        for t in (thresh, -0.1):
+            _paste_agrees(label, paste_binarize_cuda(*ins, t), *ins, t)
+    shapes, worst = {}, 0.0
+    for label, n in PASTE_SHAPES.items():
+        wy, masks, wxt, wx = _paste_inputs(g, random_boxes(g, n, h, w, lo=20.0, hi=500.0),
+                                           h, w, m)
+        got = paste_binarize_cuda(wy, masks, wxt, thresh)
+        worst = max(worst, _paste_agrees(label, got, wy, masks, wxt, thresh))
+        del got
+        k_ms = cuda_ms(lambda: paste_binarize_cuda(wy, masks, wxt, thresh))
+        p_ms = cuda_ms(lambda: paste_binarize_plain(wy, masks, wxt, thresh), iters=5)
+        l_ms = cuda_ms(lambda: torch.einsum("nhp,npq,nwq->nhw", wy, masks, wx) > thresh,
+                       iters=5)
+        rows = (wy != 0).any(-1).sum(-1).double()  # canvas rows inside each box
+        cols = (wxt != 0).any(-2).sum(-1).double()
+        flops = (2.0 * m * m * rows + 2.0 * m * rows * cols).sum().item()
+        bms, by = bound_ms(nbytes(wy, masks, wxt) + n * h * w, flops)
+        log(f"kernel C paste {label} N={n}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+            f"library_ms(einsum) {l_ms:.4f} bound_ms {bms:.4f} ({by}, "
+            f"{bms / k_ms:.0%} of it)")
+        shapes[label] = dict(n=n, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms,
+                             bound_by=by)
+    main = shapes["serving request"]
     # for a bool output: the largest |product - threshold| of a differing pixel
-    return dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
-                bound_ms=bms, bound_by=by, library_ms=l_ms)
+    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shapes=shapes)
 
 
 def main_path(device_label):

@@ -1,27 +1,33 @@
-"""Time kernels B (NMS) and A′ (RoI-warp backward) against earlier or
-differently tuned builds of themselves, on one GPU, inside one process.
+"""Time the redesigned kernels — B (NMS), A′ (RoI-warp backward), C (paste +
+binarize) and D (fused VGG block 1) — against earlier or differently tuned
+builds of themselves, on one GPU, inside one process.
 
-    python3 -m mnc_tpu_torch.compare_kernels [--parent-csrc DIR]
+    python3 -m mnc_tpu_torch.compare_kernels [--parent-csrc DIR] [--only paste,block1]
         [--nms-variant=-DMNC_NMS_CLUSTER=8] [--bwd-variant=-DMNC_RWB_THREADS=1024]
-        [--bwd-source LABEL=PATH] [--out FILE.json]
+        [--paste-variant=-DMNC_PASTE_BAND=64] [--block1-variant=-DMNC_B1_PRODUCERS=1]
+        [--bwd-source LABEL=PATH] [--paste-source LABEL=PATH]
+        [--block1-source LABEL=PATH] [--profile] [--out FILE.json]
 
 Run it from the repository's root (it borrows ``chip_smoke.py``'s inputs and
 timer).  Two runs on two cards, or at two times, cannot be compared, so every
 build is timed in one call, in the order given and then in reverse (parent,
 change, ..., change, parent), each after its outputs were held against the
-plain PyTorch version.
+plain PyTorch version (C: binarization equal except within 1e-5 of the
+threshold; D: ``block1_tolerance`` with >= 0.999 bit-identical).
 
-``--parent-csrc DIR`` names a directory holding the first port's ``nms.cu``
-and ``roi_warp_bwd.cu`` (``git show <commit>:mnc_tpu_torch/csrc/nms.cu``):
-the bitmask-then-scan NMS, which takes a (P, K, K/64) scratch, and the
-scatter backward, which writes one partial of d rois per output row.  They
-are driven exactly as their wrappers drove them (scratch allocated per call,
-partials summed by ``Tensor.sum``).  Each ``--nms-variant`` /
-``--bwd-variant`` (repeatable) builds the current source with extra ``nvcc``
-flags (the macros at the head of the two sources), which is how the cluster
-size, the block sizes and the channel slab were settled; ``--bwd-source``
-times another source file that has today's interface.  A build whose outputs
-are wrong is reported, timed all the same, and fails the run at its end.
+``--parent-csrc DIR`` names a directory holding the parent commit's sources
+(``git show <commit>:mnc_tpu_torch/csrc/paste.cu > DIR/paste.cu``); each of
+``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu`` and ``block1.cu`` found there is
+built and timed.  ``nms.cu`` and ``roi_warp_bwd.cu`` must have today's C
+interfaces; ``paste.cu`` and ``block1.cu`` the first port's (no extent
+scratch; HWIO weights), and are driven exactly as their wrappers drove them
+(D's weights permuted and cast on every call).  Each ``--*-variant``
+(repeatable) builds the current source with extra ``nvcc`` flags (the macros
+at the head of each source), which is how cluster sizes, block sizes, bands
+and grids are settled; ``--*-source`` times another source file that has
+today's interface.  ``--profile`` also lists, per build, the device time of
+each CUDA kernel it launched (``torch.profiler``).  A build whose outputs are
+wrong is reported, timed all the same, and fails the run at its end.
 """
 
 from __future__ import annotations
@@ -40,10 +46,14 @@ import torch
 from mnc_tpu_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-FIRST_PORT_ABI = {  # the C interfaces of the first port's two kernels
-    "nms": ("nms.cu", "mnc_nms_keep", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
+PARENT_ABI = {  # the C interfaces of the parent commit's sources
+    "nms": _build.KERNEL_ABI["nms"],
     "roi_warp_bwd": _build.KERNEL_ABI["roi_warp_bwd"],
+    "paste_binarize": ("paste.cu", "mnc_paste_binarize",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "block1": _build.KERNEL_ABI["block1"],
 }
+KINDS = ("nms", "roi_warp_bwd", "paste", "block1")
 
 
 def load(source: Path, abi, flags=()):
@@ -53,8 +63,11 @@ def load(source: Path, abi, flags=()):
     tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = _build.BUILD_DIR / f"libcompare-{source.stem}-{tag}.so"
     if not lib.exists():
-        subprocess.run([nvcc, *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(source)],
-                       check=True, capture_output=True, text=True)
+        proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} {flags}:\n{proc.stdout}{proc.stderr}")
+        print(f"build {source} {' '.join(flags)}:\n{proc.stdout}{proc.stderr}", flush=True)
     fn = getattr(ctypes.CDLL(str(lib)), abi[1])
     fn.argtypes, fn.restype = abi[2], ctypes.c_int
     return fn
@@ -69,64 +82,130 @@ def _ok(err, what):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+def _parent(args, name):
+    """The parent's source of ``name`` if --parent-csrc holds it, else None."""
+    if not args.parent_csrc:
+        return None
+    path = Path(args.parent_csrc) / PARENT_ABI[name][0]
+    return path if path.exists() else None
+
+
+def _sources(args, name, flags_list, extra):
+    """[(label suffix, source, flags)]: extra sources, then today's with each variant."""
+    out = []
+    for spec in extra:
+        label, _, path = spec.partition("=")
+        out.append((label, Path(path), []))
+    for flags in [""] + flags_list:
+        out.append((flags, _build.CSRC / _build.KERNEL_ABI[name][0], shlex.split(flags)))
+    return out
+
+
 def nms_callers(args):
     """{label: f(boxes, valid, thresh, top_n) -> keep}."""
-    callers = {}
-    if args.parent_csrc:
-        first = load(Path(args.parent_csrc) / "nms.cu", FIRST_PORT_ABI["nms"])
-
-        def parent(boxes, valid, thresh, top_n, fn=first):
-            p, k, _ = boxes.shape
-            mask = torch.empty((p, k, -(-k // 64)), dtype=torch.int64, device=boxes.device)
-            keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
-            _ok(fn(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(), p, k,
-                   thresh, top_n, _stream()), "first port's nms")
-            return keep
-
-        callers["first port (bitmask + scan per keep)"] = parent
-    for flags in [""] + args.nms_variant:
-        fn = load(_build.CSRC / "nms.cu", _build.KERNEL_ABI["nms"], shlex.split(flags))
-
-        def current(boxes, valid, thresh, top_n, fn=fn):
+    def make(fn):
+        def call(boxes, valid, thresh, top_n):
             p, k, _ = boxes.shape
             keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
             _ok(fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), p, k, thresh, top_n,
                    _stream()), "nms")
             return keep
+        return call
 
-        callers[f"chunked scan {flags}".strip()] = current
+    callers = {}
+    parent = _parent(args, "nms")
+    if parent:
+        callers["parent"] = make(load(parent, PARENT_ABI["nms"]))
+    for suffix, src, flags in _sources(args, "nms", args.nms_variant, []):
+        callers[f"chunked scan {suffix}".strip()] = make(load(src, _build.KERNEL_ABI["nms"],
+                                                              flags))
     return callers
 
 
 def bwd_callers(args):
     """{label: f(grad, feat, rois, scale) -> (dF f32, d rois)}."""
-    callers = {}
-
-    def make(fn, partials):
+    def make(fn):
         def call(go, f, rois, scale):
             b, h, w, c = f.shape
             n, (ph, pw) = rois.shape[1], go.shape[2:4]
             dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=f.device)
-            out = torch.empty((b, n, ph, 4) if partials else (b, n, 4), dtype=torch.float32,
-                              device=f.device)
+            out = torch.empty((b, n, 4), dtype=torch.float32, device=f.device)
             _ok(fn(go.data_ptr(), f.data_ptr(), rois.data_ptr(), dfeat.data_ptr(),
                    out.data_ptr(), b, h, w, c, n, ph, pw, scale,
                    0 if f.dtype == torch.float32 else 1, _stream()), "roi_warp_bwd")
-            return dfeat.to(f.dtype), (out.sum(dim=2) if partials else out)
+            return dfeat.to(f.dtype), out
         return call
 
-    if args.parent_csrc:
-        callers["first port (4 atomics per value)"] = make(
-            load(Path(args.parent_csrc) / "roi_warp_bwd.cu", FIRST_PORT_ABI["roi_warp_bwd"]),
-            partials=True)
-    for spec in args.bwd_source:  # another source with today's interface
-        label, _, path = spec.partition("=")
-        callers[label] = make(load(Path(path), _build.KERNEL_ABI["roi_warp_bwd"]),
-                              partials=False)
-    for flags in [""] + args.bwd_variant:
-        callers[f"register sums {flags}".strip()] = make(
-            load(_build.CSRC / "roi_warp_bwd.cu", _build.KERNEL_ABI["roi_warp_bwd"],
-                 shlex.split(flags)), partials=False)
+    abi = _build.KERNEL_ABI["roi_warp_bwd"]
+    callers = {}
+    parent = _parent(args, "roi_warp_bwd")
+    if parent:
+        callers["parent"] = make(load(parent, PARENT_ABI["roi_warp_bwd"]))
+    for suffix, src, flags in _sources(args, "roi_warp_bwd", args.bwd_variant,
+                                       args.bwd_source):
+        callers[f"register sums {suffix}".strip()] = make(load(src, abi, flags))
+    return callers
+
+
+def paste_callers(args):
+    """{label: f(wy, masks, wxt, thresh) -> bool canvases}."""
+    def make(fn, with_extent):
+        def call(wy, masks, wxt, thresh):
+            n, h, m = wy.shape
+            w = wxt.shape[2]
+            out = torch.empty((n, h, w), dtype=torch.bool, device=wy.device)
+            ptrs = [wy.data_ptr(), masks.data_ptr(), wxt.data_ptr()]
+            if with_extent:
+                ptrs.append(torch.empty((n, 4), dtype=torch.int32, device=wy.device).data_ptr())
+            _ok(fn(*ptrs, out.data_ptr(), n, h, w, m, thresh, _stream()), "paste")
+            return out
+        return call
+
+    callers = {}
+    parent = _parent(args, "paste_binarize")
+    if parent:
+        callers["parent (32 x 128 tiles)"] = make(load(parent, PARENT_ABI["paste_binarize"]),
+                                                  with_extent=False)
+    for suffix, src, flags in _sources(args, "paste_binarize", args.paste_variant,
+                                       args.paste_source):
+        callers[f"extents + bands {suffix}".strip()] = make(
+            load(src, _build.KERNEL_ABI["paste_binarize"], flags), with_extent=True)
+    return callers
+
+
+def block1_callers(args):
+    """{label: f(x, w1, b1, w2, b2) -> (B, H/2, W/2, 64) bf16}, OIHW weights."""
+    from mnc_tpu_torch.ops.block1 import packed_block1_weights
+
+    bf = torch.bfloat16
+
+    def launch(fn, x, w1, b1, w2, b2):
+        b, h, w, _ = x.shape
+        out = torch.empty((b, h // 2, w // 2, 64), dtype=bf, device=x.device)
+        _ok(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+               out.data_ptr(), b, h, w, _stream()), "block1")
+        return out
+
+    def parent_call(x, w1, b1, w2, b2, fn=None):
+        # as the first port's Block1Function.forward drove it: cast and permute per call
+        hwio = lambda w: w.to(bf).permute(2, 3, 1, 0).contiguous()  # noqa: E731
+        return launch(fn, x.to(bf).contiguous(), hwio(w1), b1.to(bf), hwio(w2), b2.to(bf))
+
+    def make(fn):
+        def call(x, w1, b1, w2, b2):
+            return launch(fn, x.to(bf).contiguous(), *packed_block1_weights(w1, b1, w2, b2))
+        return call
+
+    callers = {}
+    parent = _parent(args, "block1")
+    if parent:
+        fn = load(parent, PARENT_ABI["block1"])
+        callers["parent (wmma, a block per tile)"] = (
+            lambda *a, fn=fn: parent_call(*a, fn=fn))
+    for suffix, src, flags in _sources(args, "block1", args.block1_variant,
+                                       args.block1_source):
+        callers[f"wgmma, persistent {suffix}".strip()] = make(
+            load(src, _build.KERNEL_ABI["block1"], flags))
     return callers
 
 
@@ -139,72 +218,157 @@ def there_and_back(callers, run):
     return times
 
 
+def device_ms(fn, iters=10):
+    """{CUDA kernel name: device ms per call} over ``iters`` calls (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if t:
+            out[ev.key[:80]] = t / 1e3 / iters
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", default=None)
-    ap.add_argument("--nms-variant", action="append", default=[])
-    ap.add_argument("--bwd-variant", action="append", default=[])
-    ap.add_argument("--bwd-source", action="append", default=[], metavar="LABEL=PATH")
+    ap.add_argument("--only", default=",".join(KINDS),
+                    help=f"comma-separated subset of {','.join(KINDS)}")
+    for kind in ("nms", "bwd", "paste", "block1"):
+        ap.add_argument(f"--{kind}-variant", action="append", default=[])
+    for kind in ("bwd", "paste", "block1"):
+        ap.add_argument(f"--{kind}-source", action="append", default=[], metavar="LABEL=PATH")
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", default=None, help="also write the report to this file")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("compare_kernels: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path.cwd()))
     import chip_smoke as cs
-    from mnc_tpu_torch.ops.nms import nms_keep_plain
-    from mnc_tpu_torch.ops.roi_warp import roi_warp_plain
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     cs.log(f"device: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
-    report = {"device": smi, "nms": {}, "roi_warp_bwd": {}}
+    report = {"device": smi}
     wrong = []
 
-    callers = nms_callers(args)
-    for shape, (p, k, thresh, top_n, trailing) in cs.NMS_SHAPES.items():
-        boxes, valid, _ = cs._nms_case(g, p, k, cluster=max(k // 20, 4), invalid_frac=0.2,
-                                       trailing=trailing)
-        dup = torch.tensor([10.0, 10.0, 50.0, 50.0], device="cuda").expand(p, k, 4).contiguous()
-        ones = torch.ones(p, k, dtype=torch.bool, device="cuda")
-        want = nms_keep_plain(boxes, valid, thresh, top_n)
-        for label, fn in callers.items():
-            got = fn(boxes, valid, thresh, top_n)
-            if not torch.equal(got, want):
-                wrong.append(f"nms [{label}] ({shape}): {int((got != want).sum())} keeps "
-                             f"differ from the plain version, first at "
-                             f"{(got != want).nonzero()[0].tolist()}")
-                cs.log(wrong[-1])
-        ms = there_and_back(callers, lambda fn: cs.cuda_ms(
-            lambda: fn(boxes, valid, thresh, top_n)))
-        # identical boxes: every chunk walked, one keep (the scan's bare step)
-        walk = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(dup, ones, 0.5, 0)))
-        for label in callers:
-            cs.log(f"nms {shape} P={p} K={k} top_n={top_n} [{label}]: ms {ms[label]}; "
-                   f"identical boxes, whole scan: ms {walk[label]}")
-        report["nms"][shape] = {"ms": ms, "identical_boxes_ms": walk}
+    def profiled(kind, shape, callers, call):
+        if args.profile:
+            for label, fn in callers.items():
+                prof = device_ms(lambda: call(fn))
+                cs.log(f"{kind} {shape} [{label}] device ms per kernel: {prof}")
+                report.setdefault("profile", {}).setdefault(kind, {})[f"{shape} {label}"] = prof
 
-    callers = bwd_callers(args)
-    b, n, (h, w, c), out_hw, s = 2, 128, (40, 64, 512), (14, 14), 1.0 / 16
-    feat = torch.randn(b, h, w, c, generator=g, device="cuda")
-    gout = torch.randn(b, n, *out_hw, c, generator=g, device="cuda")
-    f16, go16 = feat.to(torch.bfloat16), gout.to(torch.bfloat16)
-    for set_label, rois in cs._bwd_box_sets(g, b, n).items():
-        fp, rp = feat.clone().requires_grad_(), rois.clone().requires_grad_()
-        wf, wr = torch.autograd.grad(roi_warp_plain(fp, rp, out_hw, s), (fp, rp), gout)
+    if "nms" in only:
+        report["nms"] = {}
+        callers = nms_callers(args)
+        from mnc_tpu_torch.ops.nms import nms_keep_plain
+        for shape, (p, k, thresh, top_n, trailing) in cs.NMS_SHAPES.items():
+            boxes, valid, _ = cs._nms_case(g, p, k, cluster=max(k // 20, 4), invalid_frac=0.2,
+                                           trailing=trailing)
+            want = nms_keep_plain(boxes, valid, thresh, top_n)
+            for label, fn in callers.items():
+                got = fn(boxes, valid, thresh, top_n)
+                if not torch.equal(got, want):
+                    wrong.append(f"nms [{label}] ({shape}): {int((got != want).sum())} keeps "
+                                 f"differ from the plain version")
+                    cs.log(wrong[-1])
+            ms = there_and_back(callers, lambda fn: cs.cuda_ms(
+                lambda: fn(boxes, valid, thresh, top_n)))
+            for label in callers:
+                cs.log(f"nms {shape} P={p} K={k} top_n={top_n} [{label}]: ms {ms[label]}")
+            report["nms"][shape] = ms
+
+    if "roi_warp_bwd" in only:
+        report["roi_warp_bwd"] = {}
+        callers = bwd_callers(args)
+        from mnc_tpu_torch.ops.roi_warp import roi_warp_plain
+        b, n, (h, w, c), out_hw, s = 2, 128, (40, 64, 512), (14, 14), 1.0 / 16
+        feat = torch.randn(b, h, w, c, generator=g, device="cuda")
+        gout = torch.randn(b, n, *out_hw, c, generator=g, device="cuda")
+        f16, go16 = feat.to(torch.bfloat16), gout.to(torch.bfloat16)
+        for set_label, rois in cs._bwd_box_sets(g, b, n).items():
+            fp, rp = feat.clone().requires_grad_(), rois.clone().requires_grad_()
+            wf, wr = torch.autograd.grad(roi_warp_plain(fp, rp, out_hw, s), (fp, rp), gout)
+            for label, fn in callers.items():
+                gf, gr = fn(gout, feat, rois, s)
+                ef, er = (gf - wf).abs().max().item(), (gr - wr).abs().max().item()
+                if ef > 1e-5 * wf.abs().max().item() or er > 1e-4 * wr.abs().max().item():
+                    wrong.append(f"roi_warp_bwd [{label}] ({set_label}): f32 gradients off "
+                                 f"by {ef:.3e} (dF), {er:.3e} (d rois)")
+                    cs.log(wrong[-1])
+            ms = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(go16, f16, rois, s)))
+            for label in callers:
+                cs.log(f"roi_warp_bwd bf16 [{set_label}] [{label}]: ms {ms[label]}")
+            report["roi_warp_bwd"][set_label] = ms
+
+    if "paste" in only:
+        report["paste"] = {}
+        callers = paste_callers(args)
+        (h, w), thresh = cs.CANVAS, 0.4
+        edge = cs._paste_inputs(g, cs._paste_edge_boxes(g, 97, 203), 97, 203)[:3]
         for label, fn in callers.items():
-            gf, gr = fn(gout, feat, rois, s)
-            ef, er = (gf - wf).abs().max().item(), (gr - wr).abs().max().item()
-            if ef > 1e-5 * wf.abs().max().item() or er > 1e-4 * wr.abs().max().item():
-                wrong.append(f"roi_warp_bwd [{label}] ({set_label}): f32 gradients off by "
-                             f"{ef:.3e} (dF), {er:.3e} (d rois)")
-                cs.log(wrong[-1])
-        ms = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(go16, f16, rois, s)))
-        for label in callers:
-            cs.log(f"roi_warp_bwd bf16 [{set_label}] [{label}]: ms {ms[label]}")
-        report["roi_warp_bwd"][set_label] = ms
+            for t in (thresh, -0.1):
+                try:
+                    cs._paste_agrees(f"[{label}] edge boxes", fn(*edge, t), *edge, t)
+                except AssertionError as exc:
+                    wrong.append(str(exc))
+        for shape, n in cs.PASTE_SHAPES.items():
+            ins = cs._paste_inputs(g, cs.random_boxes(g, n, h, w, lo=20.0, hi=500.0), h, w)[:3]
+            for label, fn in callers.items():
+                try:
+                    cs._paste_agrees(f"[{label}] {shape}", fn(*ins, thresh), *ins, thresh)
+                except AssertionError as exc:
+                    wrong.append(str(exc))
+            ms = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(*ins, thresh)))
+            for label in callers:
+                cs.log(f"paste {shape} N={n} [{label}]: ms {ms[label]}")
+            report["paste"][shape] = ms
+            profiled("paste", shape, callers, lambda fn: fn(*ins, thresh))
+
+    if "block1" in only:
+        report["block1"] = {}
+        callers = block1_callers(args)
+        from mnc_tpu_torch.ops.block1 import block1_plain, block1_tolerance, conv_relu_plain
+        w1 = torch.randn(64, 3, 3, 3, generator=g, device="cuda") * 0.1
+        b1 = torch.randn(64, generator=g, device="cuda")
+        w2 = torch.randn(64, 64, 3, 3, generator=g, device="cuda") * 0.05
+        b2 = torch.randn(64, generator=g, device="cuda")
+        for shape in ((3, 40, 50, 3), (2, *cs.CANVAS, 3), (4, *cs.CANVAS, 3)):
+            x = torch.randn(shape, generator=g, device="cuda") * 50
+            want = block1_plain(x, w1, b1, w2, b2).float()
+            o1_max = conv_relu_plain(x.to(torch.bfloat16).permute(0, 3, 1, 2), w1,
+                                     b1).float().max().item()
+            tol = block1_tolerance(want, o1_max, w2, b2)
+            for label, fn in callers.items():
+                got = fn(x, w1, b1, w2, b2).float()
+                exact = (got == want).float().mean().item()
+                if not ((got - want).abs() <= tol).all() or exact < 0.999:
+                    wrong.append(f"block1 [{label}] {shape}: {exact:.6f} bit-identical, "
+                                 f"max err {(got - want).abs().max().item():.3e}")
+                    cs.log(wrong[-1])
+            del want, tol
+            if shape[1] < cs.CANVAS[0]:  # the ragged shape is only held, not timed
+                continue
+            ms = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(x, w1, b1, w2, b2),
+                                                               iters=10))
+            for label in callers:
+                cs.log(f"block1 B={shape[0]} [{label}]: ms {ms[label]}")
+            report["block1"][f"B={shape[0]}"] = ms
+            profiled("block1", f"B={shape[0]}", callers, lambda fn: fn(x, w1, b1, w2, b2))
 
     if args.out:
         out = Path(args.out)

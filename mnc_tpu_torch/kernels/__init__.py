@@ -123,7 +123,10 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,
 
 def paste_binarize_cuda(wy: torch.Tensor, masks: torch.Tensor, wxt: torch.Tensor,
                         thresh: float) -> torch.Tensor:
-    """(N, H, M) hats × (N, M, M) masks × (N, M, W) hatsᵀ → bool (N, H, W)."""
+    """(N, H, M) hats × (N, M, M) masks × (N, M, W) hatsᵀ → bool (N, H, W).
+    Two launches on the current stream: the in-box column and row ranges of
+    each detection's hats into an (N, 4) int32 scratch, then the canvas
+    bands."""
     _check(wy, "wy", (torch.float32,), 3)
     _check(masks, "masks", (torch.float32,), 3, wy.device)
     _check(wxt, "wxt", (torch.float32,), 3, wy.device)
@@ -133,28 +136,36 @@ def paste_binarize_cuda(wy: torch.Tensor, masks: torch.Tensor, wxt: torch.Tensor
         raise ValueError(f"wy {tuple(wy.shape)} / masks {tuple(masks.shape)} / "
                          f"wxt {tuple(wxt.shape)}")
     out = torch.empty((n, h, w), dtype=torch.bool, device=wy.device)
+    ext = torch.empty((n, 4), dtype=torch.int32, device=wy.device)
+    if out.data_ptr() % 16:
+        raise ValueError("the output canvas must be 16-byte aligned")
     _launch("paste_binarize", wy.device, wy.data_ptr(), masks.data_ptr(),
-            wxt.data_ptr(), out.data_ptr(), n, h, w, m, float(thresh), _stream(wy))
+            wxt.data_ptr(), ext.data_ptr(), out.data_ptr(), n, h, w, m, float(thresh),
+            _stream(wy))
     paste_binarize_cuda.launches += 1
     return out
 
 
-def block1_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+def block1_cuda(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor, w2p: torch.Tensor,
                 b2: torch.Tensor) -> torch.Tensor:
-    """Fused VGG block 1, all bf16: x (B, H, W, 3), w1 (3, 3, 3, 64) and w2
-    (3, 3, 64, 64) in HWIO order, b1 and b2 (64,) → (B, H/2, W/2, 64)."""
+    """Fused VGG block 1, all bf16: x (B, H, W, 3) with H, W even → (B, H/2,
+    W/2, 64).  The weights come packed by
+    ``ops.block1.pack_block1_weights``: w1p (64, 32), w2p (9, 64, 64); b1
+    and b2 (64,)."""
     bf = (torch.bfloat16,)
     _check(x, "x", bf, 4)
-    for t, name, shape in ((w1, "w1", (3, 3, 3, 64)), (b1, "b1", (64,)),
-                           (w2, "w2", (3, 3, 64, 64)), (b2, "b2", (64,))):
-        _check(t, name, bf, len(shape), x.device)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     b, h, w, c = x.shape
     if c != 3 or h % 2 or w % 2:
         raise ValueError(f"x has shape {tuple(x.shape)}: 3 channels and even H, W needed")
+    for t, name, shape in ((w1p, "w1p", (64, 32)), (b1, "b1", (64,)),
+                           (w2p, "w2p", (9, 64, 64)), (b2, "b2", (64,))):
+        _check(t, name, bf, len(shape), x.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if any(t.data_ptr() % 16 for t in (x, w1p, b1, w2p, b2)):
+        raise ValueError("x, w1p, b1, w2p and b2 must be 16-byte aligned")
     out = torch.empty((b, h // 2, w // 2, 64), dtype=torch.bfloat16, device=x.device)
-    _launch("block1", x.device, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+    _launch("block1", x.device, x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
             b2.data_ptr(), out.data_ptr(), b, h, w, _stream(x))
     block1_cuda.launches += 1
     return out

@@ -6,7 +6,9 @@ f32 accumulation, one rounding to bf16, then the bf16 bias add (a second
 rounding), ReLU and max in bf16.  A CUDA tensor goes to kernel D
 (``csrc/block1.cu``), which keeps both full-resolution intermediates on
 chip; a CPU tensor goes to :func:`block1_plain`.  Weights are the trunk's
-own ``conv1_1``/``conv1_2`` tensors (OIHW, any float dtype).
+own ``conv1_1``/``conv1_2`` tensors (OIHW, any float dtype); the kernel
+reads them in its own layout (:func:`pack_block1_weights`), packed once per
+weight version (:func:`packed_block1_weights`).
 
 Gradient: as in the JAX package, whose VJP delegates to its unfused
 reference, the backward of the fused call differentiates
@@ -16,8 +18,19 @@ backward runs.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
+
+# Kernel D's conv1_2 B tile: packed column n holds output channel
+# 16 * ((n % 8) // 2) + 2 * (n // 8) + n % 2, so that the wgmma accumulator
+# fragment of lane q (columns 8j + 2q + {0, 1}, j = 0..7) holds channels
+# 16q .. 16q+15 in order.
+_COL = torch.arange(64)
+CHANNEL_OF_COLUMN = 16 * ((_COL % 8) // 2) + 2 * (_COL // 8) + _COL % 2
+# 128-byte swizzle: 16-byte chunk c of row n lies at chunk c ^ (n % 8)
+_SWIZZLED_CHUNK = torch.arange(8)[None, :] ^ (_COL[:, None] % 8)  # (64 rows, 8 chunks)
 
 
 def block1_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -58,18 +71,64 @@ def block1_tolerance(want: torch.Tensor, o1_max: float, w2: torch.Tensor,
     return own + echo
 
 
+def pack_block1_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        b2: torch.Tensor):
+    """Kernel D's operands from OIHW weights (any float dtype), all bf16:
+
+    - w1p (64, 32): [output channel][k = (ky * 3 + kx) * 3 + ci], zero for
+      k >= 27 (conv1_1's im2col, K padded to 32);
+    - w2p (9, 64, 64): per tap ky * 3 + kx, conv1_2's B tile in the layout a
+      wgmma shared-memory descriptor reads (K-major, 128-byte rows, 128-byte
+      swizzle), row n holding output channel ``CHANNEL_OF_COLUMN[n]``;
+    - b1, b2 (64,) cast.
+    """
+    bf = torch.bfloat16
+    w1p = torch.zeros(64, 32, dtype=bf, device=w1.device)
+    w1p[:, :27] = w1.detach().to(bf).permute(0, 2, 3, 1).reshape(64, 27)
+    taps = w2.detach().to(bf).permute(2, 3, 0, 1).reshape(9, 64, 8, 8)  # tap, co, chunk, ci % 8
+    taps = taps[:, CHANNEL_OF_COLUMN.to(w2.device)]
+    w2p = torch.empty_like(taps)
+    rows = _COL.to(w2.device)[:, None]
+    w2p[:, rows, _SWIZZLED_CHUNK.to(w2.device)] = taps
+    return (w1p, b1.detach().to(bf).contiguous(), w2p.reshape(9, 64, 64),
+            b2.detach().to(bf).contiguous())
+
+
+_PACKED: dict = {}
+
+
+def packed_block1_weights(w1, b1, w2, b2):
+    """:func:`pack_block1_weights`, cached per weight version: the cache
+    holds the tensors weakly and is keyed on their storage and ``_version``,
+    which every in-place update (an optimizer step, ``copy_``) bumps.
+    Inference tensors (made under ``torch.inference_mode``) keep no version
+    counter, so their packing is made anew on every call."""
+    ts = (w1, b1, w2, b2)
+    if any(t.is_inference() for t in ts):
+        return pack_block1_weights(*ts)
+    key = tuple(t.data_ptr() for t in ts)
+    stamp = tuple((t._version, t.dtype, t.shape) for t in ts)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[1] == stamp and all(r() is t for r, t in zip(hit[0], ts)):
+        return hit[2]
+    if len(_PACKED) >= 8:
+        _PACKED.clear()
+    packed = pack_block1_weights(*ts)
+    _PACKED[key] = (tuple(weakref.ref(t) for t in ts), stamp, packed)
+    return packed
+
+
 class Block1Function(torch.autograd.Function):
-    """Kernel D forward; backward through the unfused :func:`block1_plain`."""
+    """Kernel D forward; backward through the unfused :func:`block1_plain`.
+    The last four arguments are the packed weights (no gradient)."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
+    def forward(ctx, x, w1, b1, w2, b2, *packed):
         from mnc_tpu_torch.kernels import block1_cuda
 
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        bf = torch.bfloat16
-        hwio = lambda w: w.detach().to(bf).permute(2, 3, 1, 0).contiguous()  # noqa: E731
-        return block1_cuda(x.detach().to(bf).contiguous(), hwio(w1), b1.detach().to(bf),
-                           hwio(w2), b2.detach().to(bf))
+        w1p, b1p, w2p, b2p = packed
+        return block1_cuda(x.detach().to(torch.bfloat16).contiguous(), w1p, b1p, w2p, b2p)
 
     @staticmethod
     def backward(ctx, g):
@@ -79,7 +138,7 @@ class Block1Function(torch.autograd.Function):
             y = block1_plain(*inputs)
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(y, wanted, g.to(y.dtype)))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 4
 
 
 def fused_block1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -87,5 +146,6 @@ def fused_block1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.
     """Block 1 of VGG-16 on (B, H, W, 3) images (H, W even) → (B, H/2, W/2,
     64) bf16: kernel D on the card, :func:`block1_plain` on the CPU."""
     if x.is_cuda:
-        return Block1Function.apply(x, w1, b1, w2, b2)
+        return Block1Function.apply(x, w1, b1, w2, b2,
+                                    *packed_block1_weights(w1, b1, w2, b2))
     return block1_plain(x, w1, b1, w2, b2)

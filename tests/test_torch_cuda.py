@@ -130,7 +130,8 @@ def test_bin_centers_on_the_card_equal_the_cpu(gen):
                            bin_centers(rois.cpu(), 14, 1.0 / 16, axis))
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 2, 3), (3, 40, 50, 3), (2, 640, 1024, 3)])
+@pytest.mark.parametrize("shape", [(1, 8, 2, 3), (3, 40, 50, 3), (2, 640, 1024, 3),
+                                   (1, 22, 130, 3), (4, 640, 1024, 3)])
 def test_block1_kernel_matches_plain(gen, shape):
     from mnc_tpu_torch.ops.block1 import (block1_plain, block1_tolerance, conv_relu_plain,
                                           fused_block1)
@@ -153,7 +154,28 @@ def test_block1_kernel_rejects_odd_sizes(gen):
     bf = torch.bfloat16
     z = lambda *s: torch.zeros(*s, device="cuda", dtype=bf)  # noqa: E731
     with pytest.raises(ValueError, match="even H, W"):
-        kernels.block1_cuda(z(1, 7, 8, 3), z(3, 3, 3, 64), z(64), z(3, 3, 64, 64), z(64))
+        kernels.block1_cuda(z(1, 7, 8, 3), z(64, 32), z(64), z(9, 64, 64), z(64))
+    with pytest.raises(ValueError, match="w2p"):
+        kernels.block1_cuda(z(1, 8, 8, 3), z(64, 32), z(64), z(3, 3, 64, 64), z(64))
+
+
+def test_block1_kernel_follows_in_place_weight_updates(gen):
+    """The packed weights are cached per version: after an in-place update
+    the kernel sees the new weights."""
+    from mnc_tpu_torch.ops.block1 import block1_plain, fused_block1
+
+    w1 = torch.randn(64, 3, 3, 3, generator=gen, device="cuda") * 0.1
+    b1 = torch.randn(64, generator=gen, device="cuda")
+    w2 = torch.randn(64, 64, 3, 3, generator=gen, device="cuda") * 0.05
+    b2 = torch.randn(64, generator=gen, device="cuda")
+    x = torch.randn(1, 16, 64, 3, generator=gen, device="cuda") * 50
+    before = fused_block1(x, w1, b1, w2, b2)
+    w2.mul_(-1.0)
+    b1.add_(0.5)
+    after = fused_block1(x, w1, b1, w2, b2).float()
+    want = block1_plain(x, w1, b1, w2, b2).float()
+    assert not torch.equal(after, before.float())
+    assert (after == want).float().mean().item() >= 0.999
 
 
 def test_nms_kernel_train_shape(gen):
@@ -250,7 +272,8 @@ def test_nms_kernel_duplicates_and_all_invalid(gen):
     assert keep[0].sum() == 1 and keep[0, 0] and not keep[1].any()
 
 
-@pytest.mark.parametrize("n,h,w,m", [(3, 40, 130, 9), (7, 96, 128, 28), (100, 640, 1024, 21)])
+@pytest.mark.parametrize("n,h,w,m", [(3, 40, 130, 9), (7, 96, 128, 28), (100, 640, 1024, 21),
+                                     (400, 640, 1024, 21), (5, 97, 203, 21), (2, 33, 16, 32)])
 @pytest.mark.parametrize("thresh", [0.4, -0.1])
 def test_paste_kernel_matches_plain(gen, n, h, w, m, thresh):
     boxes = _boxes(gen, (n,), h, w, lo=1.0, hi=max(h, w) / 2)
@@ -263,6 +286,30 @@ def test_paste_kernel_matches_plain(gen, n, h, w, m, thresh):
     mism = got != want
     if mism.any():
         assert (prod[mism] - thresh).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("h,w", [(640, 1024), (97, 203)])
+@pytest.mark.parametrize("thresh", [0.4, -0.1])
+def test_paste_kernel_edge_boxes(gen, h, w, thresh):
+    """Boxes wholly outside the canvas, of 1 px, over the full canvas and
+    beyond, on its edges: pixels outside a box take 0 > thresh, the rest
+    agree with the f32 product."""
+    boxes = torch.tensor([[-500.0, -500.0, -300.0, -300.0], [w + 100.0, 10.0, w + 300.0, 30.0],
+                          [7.0, 7.0, 7.0, 7.0], [20.5, 10.25, 20.5, 10.25],
+                          [0.0, 0.0, w - 1.0, h - 1.0], [-40.0, -40.0, w + 40.0, h + 40.0],
+                          [w - 1.0, h - 1.0, w - 1.0, h - 1.0], [13.0, 3.0, 35.0, h - 9.0]],
+                         device="cuda")
+    masks = torch.rand(len(boxes), 21, 21, generator=gen, device="cuda")
+    wy = _paste_axis_weights(boxes[:, 1], boxes[:, 3], 21, h).contiguous()
+    wxt = _paste_axis_weights(boxes[:, 0], boxes[:, 2], 21, w).transpose(1, 2).contiguous()
+    got = kernels.paste_binarize_cuda(wy, masks, wxt, thresh)
+    prod = torch.bmm(torch.bmm(wy, masks), wxt)
+    mism = got != (prod > thresh)
+    if mism.any():
+        assert (prod[mism] - thresh).abs().max().item() < 1e-5
+    outside = ~((wy != 0).any(-1)[:, :, None] & (wxt != 0).any(-2)[:, None, :])
+    assert (got[outside] == (0.0 > thresh)).all()
+    assert (got[0] == (0.0 > thresh)).all() and (got[1] == (0.0 > thresh)).all()
 
 
 

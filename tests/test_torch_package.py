@@ -103,8 +103,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                   torch.zeros(1, 2, 4), 0.25)
     with pytest.raises(ValueError, match="CUDA tensor"):
         bf = torch.bfloat16
-        kernels.block1_cuda(torch.zeros(1, 8, 8, 3, dtype=bf), torch.zeros(3, 3, 3, 64, dtype=bf),
-                            torch.zeros(64, dtype=bf), torch.zeros(3, 3, 64, 64, dtype=bf),
+        kernels.block1_cuda(torch.zeros(1, 8, 8, 3, dtype=bf), torch.zeros(64, 32, dtype=bf),
+                            torch.zeros(64, dtype=bf), torch.zeros(9, 64, 64, dtype=bf),
                             torch.zeros(64, dtype=bf))
     assert kernels.launch_counts() == {"roi_warp_cuda": 0, "roi_warp_bwd_cuda": 0,
                                        "nms_keep_cuda": 0, "paste_binarize_cuda": 0,
