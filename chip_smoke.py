@@ -8,7 +8,9 @@ Phases, each printing its lines before the two JSON lines at the end:
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   — compiles every kernel from ``mnc_tpu_torch/csrc`` (nvcc, sm_90a).
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the shapes of the serving and training paths (NMS also on chains, stops
+   the shapes of the serving and training paths of both trunks (the RoI
+   warp and its backward on 512 and 1024 channels, NMS per class on 80 and
+   320 problems; NMS also on chains, stops
    inside a chunk and interleaved invalid boxes at full K; the RoI-warp
    backward also on many small boxes, the full canvas and boxes outside the
    map; the paste also on boxes outside the canvas, of 1 px and over all of
@@ -30,11 +32,21 @@ Phases, each printing its lines before the two JSON lines at the end:
       alone must reach ``rpn_bbox_pred``.  Then one step and one serving
       request with ``fused_block1=True`` (kernel D on the trunk), whose
       features are held against the unfused trunk's;
-   c. a small f32 model on the card against the same model on the CPU
-      (plain versions of every kernel): the serving outputs, and one train
-      step's losses, selections and gradients on the same draws.
-5. the ``kernels`` JSON line (launches of phase 4; times and errors of
-   phase 3; bounds from this run's inputs), then ``{"ok": true, ...}``.
+   c. small f32 models (VGG-16, and ResNet-50 with the conv5 head and
+      random FrozenBN leaves) on the card against the same models on the
+      CPU (plain versions of every kernel): the serving outputs, and one
+      train step's losses, selections and gradients on the same draws;
+   d. the ResNet-101 COCO configuration (``experiments/cfgs/
+      mnc_coco_resnet101.yml``: 81 classes, v1 geometry, bf16, seeded random
+      init) with the per-RoI conv5 head (``NET.ROI_CONV5``): 2 requests of 4
+      canvases at full width, checked as in a.; then the yml as it stands
+      (fc6/fc7 on 7·7·1024 inputs): one request;
+   e. the same conv5 configuration in training (``from_cfg(train=True)``,
+      stem and stage 2 frozen, ``CLIP_GRADIENTS`` 10): 3 steps of 2 images,
+      checked as in b.
+5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
+   of phase 3, per shape where there are several; bounds from this run's
+   inputs), then ``{"ok": true, ...}``.
 
 Any failure raises, so the script exits non-zero without the "ok" line.
 It imports nothing of JAX or of the JAX package.
@@ -42,12 +54,16 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
 
 import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 without tensor cores
@@ -98,11 +114,18 @@ def random_boxes(g, n, h, w, lo=16.0, hi=500.0):
 
 
 def check_roi_warp(g):
+    """Kernel A on the VGG-16 conv5 map (C = 512) and the ResNet conv4 map
+    (C = 1024) of a serving request; the first is the main row."""
+    shapes = {f"C={c}": _check_roi_warp(g, c) for c in (512, 1024)}
+    return dict(shapes["C=512"], shapes=shapes)
+
+
+def _check_roi_warp(g, c):
     from mnc_tpu_torch.kernels import roi_warp_cuda
     from mnc_tpu_torch.ops.roi_warp import bin_centers, roi_warp_plain
     import torch.nn.functional as F
 
-    b, n, (h, w, c), out_hw, s = 4, 304, (40, 64, 512), (14, 14), 1.0 / 16
+    b, n, (h, w), out_hw, s = 4, 304, (40, 64), (14, 14), 1.0 / 16
     feat32 = torch.randn(b, h, w, c, generator=g, device="cuda")
     rois = torch.stack([random_boxes(g, n, *CANVAS) for _ in range(b)])
     result = {}
@@ -112,7 +135,7 @@ def check_roi_warp(g):
         want = roi_warp_plain(f, rois, out_hw, s)
         err = (got.float() - want.float()).abs().max().item()
         tol = tol_scale * f.float().abs().max().item()
-        log(f"kernel A roi_warp {dt}: max_abs_err {err:.3e} (tolerance {tol:.3e})")
+        log(f"kernel A roi_warp {dt} C={c}: max_abs_err {err:.3e} (tolerance {tol:.3e})")
         if not err <= tol:
             raise AssertionError(f"roi_warp kernel disagrees with its plain version in {dt}")
         result[dt] = err
@@ -132,7 +155,7 @@ def check_roi_warp(g):
     l_ms = cuda_ms(lib)
     lib_err = (lib().reshape(b, c, n, *out_hw).permute(0, 2, 3, 4, 1).float()
                - roi_warp_cuda(f, rois, out_hw, s).float()).abs().max().item()
-    log(f"kernel A roi_warp bf16 B={b} N={n}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+    log(f"kernel A roi_warp bf16 B={b} N={n} C={c}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
         f"library_ms(grid_sample) {l_ms:.4f} (grid_sample vs kernel max diff {lib_err:.3e})")
     out_bytes = b * n * out_hw[0] * out_hw[1] * c * f.element_size()
     bms, by = bound_ms(nbytes(f, rois) + out_bytes, 8.0 * b * n * out_hw[0] * out_hw[1] * c)
@@ -168,21 +191,31 @@ def _bwd_box_sets(g, b, n):
 
 
 def check_roi_warp_bwd(g):
+    """Kernel A' on the VGG-16 train step's C = 512 (three RoI sets, the main
+    row) and the ResNet one's C = 1024 (the train step's mix)."""
+    shapes = {"C=512": _check_roi_warp_bwd(g, 512, None),
+              "C=1024": _check_roi_warp_bwd(g, 1024, ("mixed 16-500 px",))}
+    return dict(shapes["C=512"], shapes=shapes)
+
+
+def _check_roi_warp_bwd(g, c, only_sets):
     """Kernel A' against autograd through roi_warp_plain at the train step's
-    shapes, on three RoI sets.  f32: tight.  bf16: tight against the f32 plain
-    gradient of the same bf16-valued inputs (the kernel accumulates in f32 and
-    rounds once), loose against the bf16 plain gradient (which, like JAX's,
-    runs through bf16-rounded hats and a bf16 intermediate).  d rois must be
-    bit-equal between two runs."""
+    shapes, on three RoI sets (or those named).  f32: tight.  bf16: tight
+    against the f32 plain gradient of the same bf16-valued inputs (the kernel
+    accumulates in f32 and rounds once), loose against the bf16 plain
+    gradient (which, like JAX's, runs through bf16-rounded hats and a bf16
+    intermediate).  d rois must be bit-equal between two runs."""
     from mnc_tpu_torch.kernels import roi_warp_bwd_cuda
     from mnc_tpu_torch.ops.roi_warp import bin_centers, roi_warp_plain
     import torch.nn.functional as F
 
-    b, n, (h, w, c), out_hw, s = 2, 128, (40, 64, 512), (14, 14), 1.0 / 16
+    b, n, (h, w), out_hw, s = 2, 128, (40, 64), (14, 14), 1.0 / 16
     feat32 = torch.randn(b, h, w, c, generator=g, device="cuda")
     gout32 = torch.randn(b, n, *out_hw, c, generator=g, device="cuda")
     f, go = feat32.to(torch.bfloat16), gout32.to(torch.bfloat16)
     sets = _bwd_box_sets(g, b, n)
+    if only_sets:
+        sets = {k: v for k, v in sets.items() if k in only_sets}
 
     def plain_grads(rois, f, go):
         fp, rp = f.clone().requires_grad_(), rois.clone().requires_grad_()
@@ -193,7 +226,7 @@ def check_roi_warp_bwd(g):
         for name, a, e, tol in (("dF", got[0], want[0], tol_f), ("drois", got[1], want[1], tol_r)):
             err = (a.float() - e.float()).abs().max().item()
             lim = tol * e.float().abs().max().item()
-            log(f"kernel A' roi_warp_bwd {label} {name}: max_abs_err {err:.3e} "
+            log(f"kernel A' roi_warp_bwd C={c} {label} {name}: max_abs_err {err:.3e} "
                 f"(tolerance {lim:.3e})")
             if not err <= lim:
                 raise AssertionError(f"roi_warp_bwd {name} disagrees with the plain "
@@ -220,7 +253,7 @@ def check_roi_warp_bwd(g):
                 raise AssertionError(f"roi_warp_bwd: d rois differs between two runs "
                                      f"({label}, {dt_label})")
         set_ms[label] = cuda_ms(lambda: roi_warp_bwd_cuda(go, f, rois, s))
-        log(f"kernel A' roi_warp_bwd [{label}]: d rois bit-equal between two runs; bf16 "
+        log(f"kernel A' roi_warp_bwd C={c} [{label}]: d rois bit-equal between two runs; bf16 "
             f"kernel_ms {set_ms[label]:.4f}")
 
     main = "mixed 16-500 px"
@@ -241,7 +274,8 @@ def check_roi_warp_bwd(g):
     lib_go = go.reshape(b, n * out_hw[0], out_hw[1], c).permute(0, 3, 1, 2).contiguous()
     l_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (fn, grid), lib_go,
                                                retain_graph=True))
-    log(f"kernel A' roi_warp_bwd bf16 B={b} N={n}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+    log(f"kernel A' roi_warp_bwd bf16 B={b} N={n} C={c}: kernel_ms {k_ms:.4f} "
+        f"plain_ms {p_ms:.4f} "
         f"library_ms(grid_sample backward) {l_ms:.4f}")
     # reads g, the features and the rois; writes d features and d rois
     bms, by = bound_ms(nbytes(go, f, rois) + nbytes(f, rois),
@@ -367,6 +401,7 @@ def _nms_bound(boxes, valid, keep, top_n):
 NMS_SHAPES = {  # label: (P, K, thresh, top_n, invalid boxes trailing)
     "proposal": (4, 6000, 0.7, 304, True),
     "per-class": (80, 304, 0.3, 0, False),
+    "per-class, 81 classes": (320, 304, 0.3, 0, False),  # 4 canvases x 80 COCO classes
     "train proposal": (2, 12000, 0.7, 2000, True)}
 
 
@@ -571,24 +606,30 @@ def check_paste(g):
                 library_ms=main["library_ms"], shapes=shapes)
 
 
-def main_path(device_label):
+def serve_path(device_label, name, arch, n_requests=2):
+    """``MNCPipeline.detect_canvas_batch`` at full width on ``arch``: one
+    warm-up request, then ``n_requests`` requests of 4 canvases, each checked
+    (shapes, finite values, some valid detection, classes in [1, C), bool
+    canvases).  Returns the launch counts of those requests."""
     from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.models.mnc import MNC
     from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
 
-    arch = MNCArch(pre_nms_top_n=6000, post_nms_top_n=304, nms_chunk=256,
-                   compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
     model = MNC(arch, device="cuda", seed=0)
     pipe = MNCPipeline(model, PostCfg.from_cfg(dets_per_class=16))
-    log(f"main path: model built in {time.perf_counter() - t0:.1f} s "
-        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, bf16)")
+    log(f"serve {name}: model built in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
+        f"{arch.compute_dtype}; trunk {arch.trunk}, roi_conv5 {arch.roi_conv5}, "
+        f"{arch.num_classes} classes, pre-NMS {arch.pre_nms_top_n}, post-NMS "
+        f"{arch.post_nms_top_n})")
     g = torch.Generator(device="cuda").manual_seed(1)
     b = 4
     reqs = [torch.randint(0, 256, (b, *arch.canvas, 3), generator=g, device="cuda",
-                          dtype=torch.uint8) for _ in range(4)]
-    infos = torch.tensor([[640.0, 1024.0, 1.0]] * b, device="cuda")
-    pipe.detect_canvas_batch(reqs[3], infos)  # warm-up
+                          dtype=torch.uint8) for _ in range(n_requests + 1)]
+    infos = torch.tensor([[float(arch.canvas[0]), float(arch.canvas[1]), 1.0]] * b,
+                         device="cuda")
+    pipe.detect_canvas_batch(reqs[-1], infos)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -614,7 +655,7 @@ def main_path(device_label):
     # each request's result is checked after its timing and then dropped, as
     # a server hands it on, so later requests reuse the same device memory
     lat, n_valid = [], []
-    for r in range(2):
+    for r in range(n_requests):
         t0 = time.perf_counter()
         out = pipe.detect_canvas_batch(reqs[r], infos)
         torch.cuda.synchronize()
@@ -622,9 +663,9 @@ def main_path(device_label):
         n_valid.append(check(out))
         del out
     counts = launch_counts()
-    log(f"main path: launches {counts}; valid detections per request {n_valid}; "
+    log(f"serve {name}: launches {counts}; valid detections per request {n_valid}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"main path on {device_label}: latency per request of {b} canvases "
+    log(f"serve {name} on {device_label}: latency per request of {b} canvases "
         + ", ".join(f"{x * 1e3:.1f} ms" for x in lat)
         + f"; {len(lat) * b / sum(lat):.2f} img/s")
     return counts
@@ -638,30 +679,34 @@ def _synthetic_batch(arch, indices, max_gt=32):
     return {k: torch.from_numpy(v).cuda() for k, v in data.batch(indices).items()}
 
 
-def train_path(device_label):
-    """3 full-width optimizer steps; then the fused-block-1 step and request."""
-    import dataclasses
-
+def train_path(device_label, name, arch):
+    """3 full-width optimizer steps of 2 images on ``arch`` with the solver
+    of ``cfg.TRAIN`` (its ``CLIP_GRADIENTS`` included).  Every loss must be
+    finite; every parameter must move except the frozen ones that the solver
+    cannot move (no gradient reaches the frozen blocks or stages, which
+    autograd shows; of those, biases take no decay and a zero kernel or scale
+    decays to zero); the stage-2/3 losses alone must reach
+    ``rpn_bbox_pred``.  Returns the launch counts of the 3 steps and what the
+    fused-block-1 phase goes on with."""
     from mnc_tpu_torch.config import cfg
     from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.models.mnc import MNC
     from mnc_tpu_torch.train.loop import (TrainState, draw_step_randoms, make_train_step,
                                           mnc_loss, train_cfg_from_cfg)
     from mnc_tpu_torch.train.optim import make_optimizer
 
-    arch = MNCArch.from_cfg(train=True)
-    assert (arch.pre_nms_top_n, arch.post_nms_top_n, arch.fc_dim, arch.n_stages,
-            arch.trunk_frozen) == (12000, 2000, 4096, 5, 2), arch
     train_cfg = train_cfg_from_cfg(cfg)
     t0 = time.perf_counter()
     model = MNC(arch, device="cuda", seed=0, train=True)
     opt = make_optimizer(model, base_lr=cfg.TRAIN.LEARNING_RATE, momentum=cfg.TRAIN.MOMENTUM,
                          weight_decay=cfg.TRAIN.WEIGHT_DECAY, gamma=cfg.TRAIN.GAMMA,
-                         stepsize=cfg.TRAIN.STEPSIZE)
+                         stepsize=cfg.TRAIN.STEPSIZE, clip_gradients=cfg.TRAIN.CLIP_GRADIENTS)
     step = make_train_step(model, opt, arch, train_cfg)
     state = TrainState.create(model, opt)
-    log(f"train path: model built in {time.perf_counter() - t0:.1f} s (f32 master "
-        f"parameters, {arch.compute_dtype} compute)")
+    log(f"train {name}: model built in {time.perf_counter() - t0:.1f} s (f32 master "
+        f"parameters, {arch.compute_dtype} compute; trunk {arch.trunk}, roi_conv5 "
+        f"{arch.roi_conv5}, {arch.num_classes} classes, trunk_frozen {arch.trunk_frozen}, "
+        f"clip_gradients {cfg.TRAIN.CLIP_GRADIENTS})")
     gen = torch.Generator(device="cuda").manual_seed(5)
     ims = 2
     batches = [_synthetic_batch(arch, [2 * i, 2 * i + 1]) for i in range(5)]
@@ -670,7 +715,7 @@ def train_path(device_label):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    times, totals = [], []
+    times = []
     for i in range(3):
         t0 = time.perf_counter()
         _, metrics = step(state, batches[i], gen)
@@ -678,38 +723,55 @@ def train_path(device_label):
         times.append(time.perf_counter() - t0)
         m = {k: float(v) for k, v in metrics.items()}
         if not all(x == x and abs(x) != float("inf") for x in m.values()):
-            raise AssertionError(f"train path: a loss is not finite: {m}")
-        totals.append(m["total"])
-        log(f"train path step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+            raise AssertionError(f"train {name}: a loss is not finite: {m}")
+        log(f"train {name} step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    # every parameter moves, except the frozen blocks' biases: no gradient
-    # reaches blocks 1-2, their kernels still decay, biases have no decay
-    still = sorted(n for n, p in model.named_parameters() if torch.equal(p, before[n]))
-    frozen_biases = sorted(f"trunk.conv{b}_{i}.bias" for b in (1, 2) for i in (1, 2))
-    if still != frozen_biases:
-        raise AssertionError(f"train path: parameters unchanged: {still}, expected only "
-                             f"{frozen_biases}")
-    del before
-    log(f"train path: launches {counts}; peak memory {peak:.2f} GiB")
-    log(f"train path on {device_label}: step time for {ims} images "
+    log(f"train {name}: launches {counts}; peak memory {peak:.2f} GiB")
+    log(f"train {name} on {device_label}: step time for {ims} images "
         + ", ".join(f"{x * 1e3:.1f} ms" for x in times)
         + f"; {len(times) * ims / sum(times):.2f} img/s")
 
-    # the cascade property: stage-2/3 losses alone reach rpn_bbox_pred,
-    # through kernel A' (gradient to the box coordinates)
+    # one more forward: the cascade property (the stage-2/3 losses alone
+    # reach rpn_bbox_pred, through kernel A' to the box coordinates), then
+    # the whole loss's backward, which leaves the frozen parameters without
+    # a gradient
     draws = draw_step_randoms(gen, arch, train_cfg, ims, 32)
-    _, losses = mnc_loss(model, batches[3], draws, arch, model.anchors, train_cfg)
-    (losses["s23_mask"] + losses["s23_cls"] + losses["s23_bbox"]).backward()
-    gmax = model.rpn_head.rpn_bbox_pred.weight.grad.abs().max().item()
-    model.zero_grad(set_to_none=True)
-    log(f"train path: max |d(stage-2/3 losses)/d rpn_bbox_pred.weight| = {gmax:.3e}")
+    total, losses = mnc_loss(model, batches[3], draws, arch, model.anchors, train_cfg)
+    (g_rpn,) = torch.autograd.grad(losses["s23_mask"] + losses["s23_cls"] + losses["s23_bbox"],
+                                   model.rpn_head.rpn_bbox_pred.weight, retain_graph=True)
+    gmax = g_rpn.abs().max().item()
+    log(f"train {name}: max |d(stage-2/3 losses)/d rpn_bbox_pred.weight| = {gmax:.3e}")
     if not gmax > 0.0:
-        raise AssertionError("stage-2/3 losses do not reach rpn_bbox_pred")
+        raise AssertionError(f"train {name}: stage-2/3 losses do not reach rpn_bbox_pred")
+    total.backward()
+    frozen = sorted(n for n, p in model.named_parameters() if p.grad is None)
+    model.zero_grad(set_to_none=True)
+    if not frozen or not all(n.startswith("trunk.") for n in frozen):
+        raise AssertionError(f"train {name}: parameters without a gradient: {frozen}")
+    is_bias = dict(zip(opt.names, opt.is_bias))
+    keep = sorted(n for n in frozen if is_bias[n] or not before[n].any())
+    still = sorted(n for n, p in model.named_parameters() if torch.equal(p, before[n]))
+    log(f"train {name}: {len(frozen)} frozen parameters (no gradient); the {len(keep)} of "
+        f"them that the solver cannot move: {', '.join(keep)}")
+    if still != keep:
+        raise AssertionError(f"train {name}: parameters unchanged: {still}, expected only "
+                             f"{keep}")
+    del before
+    return counts, (model, opt, state, batches, gen, train_cfg)
 
-    # ---- fused block 1: one train step and one serving request through D
+
+def fused_block1_path(model, opt, state, batches, gen, train_cfg):
+    """One train step and one serving request of the VGG-16 model with
+    ``fused_block1=True`` (kernel D on the trunk), whose features are held
+    against the unfused trunk's.  Returns their launch counts."""
+    import dataclasses
+
+    from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mnc_tpu_torch.train.loop import make_train_step
+
     feats = model.features(batches[3]["image"]).float()
-    fused_arch = dataclasses.replace(arch, fused_block1=True)
+    fused_arch = dataclasses.replace(model.arch, fused_block1=True)
     model.arch = fused_arch
     model.trunk.fused_block1 = True
     reset_launch_counts()
@@ -732,10 +794,50 @@ def train_path(device_label):
         raise AssertionError("fused block 1: serving outputs are not finite")
     fused_counts = launch_counts()
     log(f"fused block 1: train step total {m['total']:.4f}; launches {fused_counts}")
-    return counts, fused_counts
+    return fused_counts
 
 
-def small_train_step_agrees():
+@contextlib.contextmanager
+def coco_cfg(roi_conv5: bool):
+    """The ResNet-101 COCO configuration (``experiments/cfgs/
+    mnc_coco_resnet101.yml`` with ``NET.ROI_CONV5`` as given) in the global
+    cfg, which is restored afterwards."""
+    from mnc_tpu_torch import config as C
+
+    saved = C.cfg.clone()
+    try:
+        C.cfg_from_file(os.path.join(REPO, "experiments", "cfgs", "mnc_coco_resnet101.yml"))
+        C.cfg_from_list(["NET.ROI_CONV5", str(roi_conv5)])
+        yield C.cfg
+    finally:
+        C.cfg.clear()
+        C.cfg.update(saved)
+
+
+def randomize_frozen_bn(model, seed):
+    """Draws every FrozenBN leaf anew from a seeded CPU generator, the same
+    on any device (as ``tests/test_torch_resnet.py::randomize_bn``): scales
+    in [0.5, 1.5], each ``bn3``'s in [0.1, 0.3], the stem's divided by 64,
+    biases in [-0.3, 0.3].  At init every ``bn3`` scale is 0, so each block
+    would be its shortcut and its convolutions would not be compared."""
+    from mnc_tpu_torch.models.resnet import FrozenBN
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, FrozenBN):
+                lo, hi = (0.1, 0.3) if m.zero_scale else (0.5, 1.5)
+                scale = lo + (hi - lo) * torch.rand(m.scale.shape, generator=gen)
+                m.scale.copy_(scale / (64.0 if name == "trunk.bn1" else 1.0))
+                m.bias.copy_(0.6 * torch.rand(m.bias.shape, generator=gen) - 0.3)
+    return model
+
+
+# the small ResNet-50 with the conv5 head that is held card against CPU
+RESNET_SMALL = dict(trunk="resnet50", roi_conv5=True)
+
+
+def small_train_step_agrees(arch_kw=None):
     """One train step of a small f32 model on the card against the same
     model on the CPU (plain versions), on the same draws: selections
     identical, losses and gradients within the stated tolerances."""
@@ -744,9 +846,11 @@ def small_train_step_agrees():
     from mnc_tpu_torch.train import targets as T
     from mnc_tpu_torch.train.loop import draw_step_randoms, mnc_loss
 
+    arch_kw = arch_kw or {}
     arch = MNCArch(canvas=(128, 160), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
                    warp_hw=4, compute_dtype=torch.float32, fc_dim=64, mask_fc_dim=32,
-                   pre_nms_top_n=128, post_nms_top_n=32, rpn_min_size=4.0, trunk_frozen=0)
+                   pre_nms_top_n=128, post_nms_top_n=32, rpn_min_size=4.0, trunk_frozen=0,
+                   **arch_kw)
     train_cfg = dict(RPN_POSITIVE_OVERLAP=0.7, RPN_NEGATIVE_OVERLAP=0.3, RPN_BATCHSIZE=64,
                      RPN_FG_FRACTION=0.5, BATCH_SIZE=32, FG_FRACTION=0.25, FG_THRESH=0.5,
                      BG_THRESH_HI=0.5, BG_THRESH_LO=0.0)
@@ -768,6 +872,8 @@ def small_train_step_agrees():
         res = {}
         for dev in ("cuda", "cpu"):
             model = MNC(arch, device=dev, seed=3, train=True)
+            if arch.trunk != "vgg16":
+                randomize_frozen_bn(model, 4)
             to = lambda t: t.to(dev)  # noqa: E731
             d = type(draws)(*(tuple(to(x) for x in f) for f in draws))
             total, losses = mnc_loss(model, {k: to(v) for k, v in batch.items()}, d, arch,
@@ -793,15 +899,15 @@ def small_train_step_agrees():
     # several percent of the leaf's max.  The RPN and head leaves (a few
     # thousand units) are held tightly: rpn_bbox_pred's gradient arrives
     # through kernel A' (the box coordinates).
-    log(f"small f32 train step, card vs CPU: sampled RoIs and labels identical; max relative "
-        f"loss diff {loss_err:.2e} (tolerance 1e-4); max gradient diff relative to each "
-        f"leaf's max: RPN and heads {errs['heads']:.2e} (tolerance 1e-3), trunk "
-        f"{errs['trunk']:.2e} (tolerance 0.15)")
+    log(f"small f32 train step ({arch.trunk}, roi_conv5 {arch.roi_conv5}), card vs CPU: "
+        f"sampled RoIs and labels identical; max relative loss diff {loss_err:.2e} "
+        f"(tolerance 1e-4); max gradient diff relative to each leaf's max: RPN and heads "
+        f"{errs['heads']:.2e} (tolerance 1e-3), trunk {errs['trunk']:.2e} (tolerance 0.15)")
     if loss_err > 1e-4 or errs["heads"] > 1e-3 or errs["trunk"] > 0.15:
         raise AssertionError("small train step: card and CPU disagree beyond tolerance")
 
 
-def small_model_agrees():
+def small_model_agrees(arch_kw=None):
     """A small f32 model on the card vs the same weights on the CPU, where
     every kernel runs its plain version."""
     from mnc_tpu_torch.models.mnc import MNC, MNCArch
@@ -809,20 +915,26 @@ def small_model_agrees():
 
     arch = MNCArch(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
                    warp_hw=4, compute_dtype=torch.float32, fc_dim=64, mask_fc_dim=32,
-                   pre_nms_top_n=64, post_nms_top_n=16, rpn_min_size=4.0)
+                   pre_nms_top_n=64, post_nms_top_n=16, rpn_min_size=4.0, **(arch_kw or {}))
     post = PostCfg(dets_per_class=4, max_per_image=8)
     g = torch.Generator().manual_seed(2)
     imgs = torch.randint(0, 256, (2, 96, 128, 3), generator=g, dtype=torch.uint8)
     infos = torch.tensor([[96.0, 128.0, 1.0], [80.0, 120.0, 1.0]])
-    gpu = MNCPipeline(MNC(arch, device="cuda", seed=3), post).detect_canvas_batch(imgs, infos)
-    cpu = MNCPipeline(MNC(arch, device="cpu", seed=3), post).detect_canvas_batch(imgs, infos)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = MNC(arch, device=dev, seed=3)
+        if arch.trunk != "vgg16":
+            randomize_frozen_bn(model, 4)
+        out[dev] = MNCPipeline(model, post).detect_canvas_batch(imgs, infos)
+    gpu, cpu = out["cuda"], out["cpu"]
     for key in ("valid", "classes"):
         if not torch.equal(gpu[key].cpu(), cpu[key]):
             raise AssertionError(f"small model: {key} differs between card and CPU")
     errs = {key: (gpu[key].cpu() - cpu[key]).abs().max().item()
             for key in ("boxes", "scores", "masks")}
     flips = (gpu["canvas_masks"].cpu() != cpu["canvas_masks"]).float().mean().item()
-    log(f"small f32 model, card vs CPU: selections identical; max abs diff {errs}; "
+    log(f"small f32 model ({arch.trunk}, roi_conv5 {arch.roi_conv5}), card vs CPU: "
+        f"selections identical ({int(cpu['valid'].sum())} valid); max abs diff {errs}; "
         f"canvas pixels differing {flips:.2e}")
     if errs["boxes"] > 1e-2 or errs["scores"] > 1e-4 or errs["masks"] > 1e-3 or flips > 1e-3:
         raise AssertionError("small model: card and CPU disagree beyond tolerance")
@@ -839,6 +951,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, help="comma-separated kernels: build and "
                     "check only these, skip the main paths (for bringing a kernel up)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -873,11 +986,37 @@ def main(argv=None) -> int:
         return 0
 
     # phase 4: the main paths
+    from mnc_tpu_torch.models.mnc import MNCArch
+
     label = f"{torch.cuda.get_device_name(0)} ({smi})"
-    by_path = {"serve": main_path(label)}
-    by_path["train"], by_path["train_fused_block1"] = train_path(label)
-    small_model_agrees()
-    small_train_step_agrees()
+    vgg = MNCArch(pre_nms_top_n=6000, post_nms_top_n=304, nms_chunk=256,
+                  compute_dtype=torch.bfloat16)
+    by_path = {"serve": serve_path(label, "VGG-16", vgg)}
+    arch = MNCArch.from_cfg(train=True)
+    assert (arch.pre_nms_top_n, arch.post_nms_top_n, arch.fc_dim, arch.n_stages,
+            arch.trunk_frozen) == (12000, 2000, 4096, 5, 2), arch
+    by_path["train"], cont = train_path(label, "VGG-16", arch)
+    by_path["train_fused_block1"] = fused_block1_path(*cont)
+    del cont
+    torch.cuda.empty_cache()
+    for arch_kw in (None, RESNET_SMALL):
+        small_model_agrees(arch_kw)
+        small_train_step_agrees(arch_kw)
+    for roi_conv5, name, n_requests in ((True, "resnet101_conv5", 2),
+                                        (False, "resnet101_fc", 1)):
+        with coco_cfg(roi_conv5):
+            arch = MNCArch.from_cfg()
+            assert (arch.trunk, arch.num_classes, arch.pre_nms_top_n, arch.post_nms_top_n,
+                    arch.resnet_stride_in_3x3) == ("resnet101", 81, 6000, 304, False), arch
+            by_path[f"serve_{name}"] = serve_path(label, f"ResNet-101 COCO ({name})", arch,
+                                                  n_requests)
+        torch.cuda.empty_cache()
+    with coco_cfg(True) as cfg:
+        arch = MNCArch.from_cfg(train=True)
+        assert (arch.trunk, arch.roi_conv5, arch.pre_nms_top_n, arch.post_nms_top_n,
+                arch.trunk_frozen, cfg.TRAIN.CLIP_GRADIENTS) == (
+                    "resnet101", True, 12000, 2000, 2, 10.0), arch
+        by_path["train_resnet101_conv5"], _ = train_path(label, "ResNet-101 COCO conv5", arch)
 
     # phase 5: report
     meta = {
@@ -893,8 +1032,10 @@ def main(argv=None) -> int:
                    "mnc_tpu/ops/pallas/block1_kernel.py:172"),
     }
     # the paths that must launch each kernel
-    must = {"roi_warp": ("serve", "train"), "roi_warp_bwd": ("train",),
-            "nms": ("serve", "train"), "paste_binarize": ("serve",),
+    serving = ("serve", "serve_resnet101_conv5", "serve_resnet101_fc")
+    training = ("train", "train_resnet101_conv5")
+    must = {"roi_warp": serving + training, "roi_warp_bwd": training,
+            "nms": serving + training, "paste_binarize": serving,
             "block1": ("train_fused_block1",)}
     report = []
     for name, (wrapper, source, replaces) in meta.items():
@@ -905,6 +1046,7 @@ def main(argv=None) -> int:
         report.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                            launches=sum(per_path.values()), launches_by_path=per_path,
                            **results[name]))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

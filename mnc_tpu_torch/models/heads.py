@@ -4,8 +4,11 @@
 - ``MaskHead`` ≙ fc_mask on the flattened 14×14 warped RoI features →
   MASK_SIZE² mask logits (stage 2; weights shared with stage 4).
 - ``ClassifyHead`` ≙ mask pooling → 2×2 max pool → fc6/fc7 → cls_score (C)
-  + bbox_pred (4C) (stage 3; weights shared with stage 5).  The
-  dual-pathway variant (``NET.DUAL_PATHWAY``) is not ported yet.
+  + bbox_pred (4C) (stage 3; weights shared with stage 5).  With
+  ``dual_pathway`` (``NET.DUAL_PATHWAY``) the raw RoI features are pooled
+  beside the mask-pooled ones and concatenated after them before fc6.
+
+The ResNet per-RoI conv5 head is ``models/resnet.py::ConvRoIHead``.
 
 Features are NHWC and are flattened in NHWC order into ``fc_mask`` and
 ``fc6``, as in the JAX package, so a Dense kernel (in, out) is the Linear
@@ -69,13 +72,15 @@ class MaskHead(nn.Module):
 class ClassifyHead(nn.Module):
     def __init__(self, in_features: int, num_classes: int = 21, fc_dim: int = 4096,
                  pool_window: int = 2, compute_dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, dual_pathway: bool = False):
+        """``in_features``: the pooled, flattened width of one pathway."""
         super().__init__()
         self.compute_dtype = compute_dtype
         self.pool_window = pool_window
         self.dropout_rate = dropout_rate
         self.fc_dim = fc_dim
-        self.fc6 = nn.Linear(in_features, fc_dim)
+        self.dual_pathway = dual_pathway
+        self.fc6 = nn.Linear(in_features * (2 if dual_pathway else 1), fc_dim)
         self.fc7 = nn.Linear(fc_dim, fc_dim)
         self.cls_score = nn.Linear(fc_dim, num_classes)
         self.bbox_pred = nn.Linear(fc_dim, 4 * num_classes)
@@ -104,8 +109,10 @@ class ClassifyHead(nn.Module):
         (N, fc_dim) bool keep-masks (drawn here from the global generator
         when absent)."""
         cd = self.compute_dtype
-        masked = mask_pooling(roi_feat, soft_masks)
-        x = self._pool(masked.to(cd))
+        paths = [mask_pooling(roi_feat, soft_masks)]
+        if self.dual_pathway:
+            paths.append(roi_feat)
+        x = torch.cat([self._pool(p.to(cd)) for p in paths], dim=-1)
         k6, k7 = keep_masks if keep_masks is not None else (None, None)
         x = F.relu(linear_cast(self.fc6, x, cd))
         if train:

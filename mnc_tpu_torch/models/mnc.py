@@ -24,6 +24,7 @@ from torch import nn
 
 from mnc_tpu_torch import config as C
 from mnc_tpu_torch.models.heads import ClassifyHead, MaskHead, RPNHead
+from mnc_tpu_torch.models.resnet import _DEPTHS, ConvRoIHead, FrozenBN, ResNetTrunk
 from mnc_tpu_torch.models.vgg import VGG16Trunk
 from mnc_tpu_torch.ops.anchors import shifted_anchors
 from mnc_tpu_torch.ops.bbox import bbox_transform_inv, clip_boxes
@@ -47,7 +48,7 @@ def _cap(ref_val: int, static_val: int, ref_key: str, static_key: str) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class MNCArch:
-    """Static architecture/shape configuration of the VGG-16 cascade."""
+    """Static architecture/shape configuration of the cascade."""
 
     canvas: tuple[int, int] = (640, 1024)
     feat_stride: int = 16
@@ -59,9 +60,19 @@ class MNCArch:
     # fc6 input resolution after the classify head's max pool; None → warp_hw // 2
     pooled_hw: int | None = None
     n_stages: int = 5
+    # "vgg16" or "resnet50" / "resnet101" / "resnet152"
+    trunk: str = "vgg16"
     compute_dtype: torch.dtype = torch.bfloat16
     fc_dim: int = 4096
     mask_fc_dim: int = 256
+    # NET.DUAL_PATHWAY: the fc head also pools the raw RoI features
+    dual_pathway: bool = False
+    # NET.ROI_CONV5 (ResNet only): the conv5 stage runs per RoI after the
+    # warp (ConvRoIHead) in place of the fc6/fc7 tower
+    roi_conv5: bool = False
+    # NET.RESNET_STRIDE_IN_3X3: False = v1 (stride on the first 1x1, the
+    # MSRA geometry), True = v1.5 (torchvision's checkpoints)
+    resnet_stride_in_3x3: bool = False
     # proposal shapes
     pre_nms_top_n: int = 1024
     post_nms_top_n: int = 304
@@ -84,7 +95,8 @@ class MNCArch:
     trunk_frozen: int = 2
     # NET.FUSED_BLOCK1: run VGG block 1 as the fused CUDA kernel
     # (ops/block1.py) when compute_dtype is bf16, H % 8 == 0 and W % 2 == 0;
-    # same parameters, within 1 bf16 ulp of the unfused layers
+    # same parameters, within 1 bf16 ulp of the unfused layers.  Ignored by
+    # the ResNet trunks, as in the JAX package
     fused_block1: bool = False
 
     def __post_init__(self):
@@ -104,22 +116,18 @@ class MNCArch:
         """The architecture of the global cfg, with the TEST.* working set
         and thresholds, or the TRAIN.* ones when ``train``.
 
-        Raises for what the port does not run yet: other trunks, int8
-        inference, the per-RoI conv5 head and the dual-pathway classify
-        head.  ``NET.S2D_BLOCK1`` only changes the JAX package's layout of
-        block 1 (no kernel, same math) and is ignored."""
+        Raises for int8 inference (``TEST.INT8``), which the port does not
+        run yet.  ``NET.S2D_BLOCK1`` only changes the JAX package's layout
+        of block 1 (no kernel, same math) and is ignored."""
         cfg = C.cfg
         split = cfg.TRAIN if train else cfg.TEST
         name = "TRAIN" if train else "TEST"
         static_pre = getattr(cfg.STATIC, f"{name}_PRE_NMS_TOP_N")
         static_post = getattr(cfg.STATIC, f"{name}_POST_NMS_TOP_N")
-        if (cfg.NET.TRUNK != "vgg16" or cfg.NET.ROI_CONV5
-                or (cfg.TEST.INT8 and not train) or cfg.NET.DUAL_PATHWAY):
+        if cfg.TEST.INT8 and not train:
             raise NotImplementedError(
-                "the port runs the VGG-16 cascade in float with the single-"
-                f"pathway head only (NET.TRUNK {cfg.NET.TRUNK!r}, NET.ROI_CONV5 "
-                f"{cfg.NET.ROI_CONV5}, TEST.INT8 {cfg.TEST.INT8}, "
-                f"NET.DUAL_PATHWAY {cfg.NET.DUAL_PATHWAY})")
+                f"TEST.INT8: the port runs the cascade in float only (NET.TRUNK "
+                f"{cfg.NET.TRUNK!r})")
         kw = dict(
             canvas=tuple(cfg.STATIC.CANVAS),
             feat_stride=cfg.STATIC.FEAT_STRIDE,
@@ -130,9 +138,13 @@ class MNCArch:
             warp_hw=cfg.NET.WARP_HW,
             pooled_hw=cfg.NET.POOLED_HW,
             n_stages=cfg.NET.N_STAGES,
+            trunk=cfg.NET.TRUNK,
             compute_dtype=_DTYPES[cfg.NET.COMPUTE_DTYPE],
             fc_dim=cfg.NET.FC_DIM,
             mask_fc_dim=cfg.NET.MASK_FC_DIM,
+            dual_pathway=bool(cfg.NET.DUAL_PATHWAY),
+            roi_conv5=bool(cfg.NET.ROI_CONV5),
+            resnet_stride_in_3x3=bool(cfg.NET.RESNET_STRIDE_IN_3X3),
             suppress_untrainable_anchors=bool(cfg.NET.SUPPRESS_UNTRAINABLE_ANCHORS),
             pre_nms_top_n=_cap(split.RPN_PRE_NMS_TOP_N, static_pre,
                                f"{name}.RPN_PRE_NMS_TOP_N",
@@ -326,14 +338,18 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
 class MNC(nn.Module):
     """Full MNC network: trunk + RPN + shared mask/classify heads.
 
+    The trunk is VGG-16 or a ResNet (``arch.trunk``); the classify head is
+    the fc6/fc7 tower, or the per-RoI conv5 stage with ``arch.roi_conv5``
+    (ResNet only).
+
     Args:
       arch: the static configuration.
       device: ``None`` (= ``cuda``; raises without a GPU) or an explicit
         device such as ``"cpu"``.
       seed: seeds the random init, which follows the JAX package's flax
         initializers (lecun-normal kernels, zero biases, normal(0.001) for
-        ``bbox_pred``).  Load trained or bridged weights with
-        ``load_state_dict``.
+        ``bbox_pred``, FrozenBN scales of ones and zeros on every ``bn3``).
+        Load trained or bridged weights with ``load_state_dict``.
       train: ``False`` (serving): the weights are held in
         ``arch.compute_dtype`` and take no gradient.  ``True``: the weights
         are f32 master parameters that take gradients, every layer casts
@@ -347,21 +363,40 @@ class MNC(nn.Module):
         dev = resolve_device(device)
         a = arch
         self.arch = a
-        c = 512
         cd = a.compute_dtype
-        self.trunk = VGG16Trunk(cd, a.trunk_frozen, a.fused_block1)
+        if a.trunk == "vgg16":
+            self.trunk, c = VGG16Trunk(cd, a.trunk_frozen, a.fused_block1), 512
+        elif a.trunk in {f"resnet{d}" for d in _DEPTHS}:
+            depth = int(a.trunk[len("resnet"):])
+            self.trunk = ResNetTrunk(depth, cd, a.trunk_frozen, a.resnet_stride_in_3x3)
+            c = self.trunk.out_channels
+        else:
+            raise ValueError(f"unknown trunk {a.trunk!r}")
         self.rpn_head = RPNHead(a.num_anchors, c, compute_dtype=cd)
         self.mask_head = MaskHead(a.warp_hw * a.warp_hw * c, a.mask_fc_dim, a.mask_size, cd)
-        self.classify_head = ClassifyHead(a.pooled_hw * a.pooled_hw * c, a.num_classes,
-                                          a.fc_dim, a.warp_hw // a.pooled_hw, cd)
+        if a.roi_conv5:
+            if a.trunk == "vgg16":
+                raise ValueError("NET.ROI_CONV5 is the ResNet per-RoI conv5 head; "
+                                 f"the trunk is {a.trunk!r}")
+            self.classify_head = ConvRoIHead(a.num_classes, depth, c, cd,
+                                             a.resnet_stride_in_3x3)
+        else:
+            self.classify_head = ClassifyHead(a.pooled_hw * a.pooled_hw * c, a.num_classes,
+                                              a.fc_dim, a.warp_hw // a.pooled_hw, cd,
+                                              dual_pathway=a.dual_pathway)
         gen = torch.Generator().manual_seed(seed)
-        for name, p in self.named_parameters():
-            if name.endswith(".bias"):
-                nn.init.zeros_(p)
-            elif name == "classify_head.bbox_pred.weight":
-                nn.init.normal_(p, 0.0, 0.001, generator=gen)
-            else:
-                _lecun_normal_(p, p[0].numel(), gen)
+        for mod_name, mod in self.named_modules():
+            if isinstance(mod, FrozenBN):
+                nn.init.constant_(mod.scale, 0.0 if mod.zero_scale else 1.0)
+                nn.init.zeros_(mod.bias)
+                continue
+            for leaf, p in mod.named_parameters(recurse=False):
+                if leaf == "bias":
+                    nn.init.zeros_(p)
+                elif mod_name == "classify_head.bbox_pred":
+                    nn.init.normal_(p, 0.0, 0.001, generator=gen)
+                else:
+                    _lecun_normal_(p, p[0].numel(), gen)
         self.register_buffer("anchors", torch.from_numpy(a.all_anchors()),
                              persistent=False)
         self.register_buffer("resize_mat", torch.from_numpy(
@@ -372,9 +407,9 @@ class MNC(nn.Module):
         if not train:
             for m in (self.trunk, self.rpn_head, self.mask_head, self.classify_head):
                 m.to(cd)
-        if dev.type == "cuda":  # cuDNN's NHWC kernels for the NHWC trunk
-            self.trunk.to(memory_format=torch.channels_last)
-            self.rpn_head.to(memory_format=torch.channels_last)
+        if dev.type == "cuda":  # cuDNN's NHWC kernels for the NHWC convolutions
+            for m in (self.trunk, self.rpn_head, self.classify_head):
+                m.to(memory_format=torch.channels_last)
 
     @property
     def device(self) -> torch.device:

@@ -40,9 +40,9 @@ VGG16_BLOCKS = (
 
 
 def conv_cast(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``conv`` applied with its weight and bias cast to ``dtype``."""
-    return F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride,
-                    conv.padding)
+    """``conv`` applied with its weight and bias (if any) cast to ``dtype``."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x, conv.weight.to(dtype), bias, conv.stride, conv.padding)
 
 
 class VGG16Trunk(nn.Module):

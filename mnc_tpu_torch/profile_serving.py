@@ -1,11 +1,16 @@
 """Where the time of one serving request goes, on the GPU.
 
-    python3 -m mnc_tpu_torch.profile_serving [--batch 4] [--iters 5] [--fused-block1]
+    python3 -m mnc_tpu_torch.profile_serving [--batch 4] [--iters 5] [--fused-block1] \
+        [--cfg experiments/cfgs/x.yml] [--set KEY VAL ...]
 
-Drives the full-width 5-stage VGG-16 serving path (the configuration of
-``chip_smoke.py``: 640×1024 canvas, pre-NMS 6000, post-NMS 304, bf16,
-seeded random init; ``--fused-block1`` runs VGG block 1 through kernel D) and
-prints, for one request of ``--batch`` canvases:
+Drives the full-width 5-stage serving path of ``MNCArch.from_cfg()`` on
+the default cfg, or on the one that ``--cfg`` and ``--set`` make (the
+default is the VGG-16 configuration of ``chip_smoke.py``: 640×1024 canvas,
+pre-NMS 6000, post-NMS 304, bf16; ``--cfg
+experiments/cfgs/mnc_coco_resnet101.yml --set NET.ROI_CONV5 True`` is the
+ResNet-101 COCO one), with seeded random init (``--fused-block1`` runs VGG
+block 1 through kernel D), and prints, for one request of ``--batch``
+canvases:
 
 - per-stage stream times from CUDA events around each stage (trunk, RPN +
   proposals, first head pass, bridge + second head pass, post-processing;
@@ -28,6 +33,7 @@ import time
 
 import torch
 
+from mnc_tpu_torch.config import cfg_from_file, cfg_from_list
 from mnc_tpu_torch.models.mnc import MNC, MNCArch, propose_rois, stage_bridge
 from mnc_tpu_torch.pipeline.inference import PostCfg, postprocess_detections
 from mnc_tpu_torch.pipeline.inference import vote_candidates
@@ -70,15 +76,23 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--fused-block1", action="store_true")
+    ap.add_argument("--cfg", default=None, help="a YAML file merged into the cfg")
+    ap.add_argument("--set", dest="set_cfgs", nargs="*", default=None,
+                    help="KEY VALUE pairs set in the cfg after --cfg")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
+    if args.cfg:
+        cfg_from_file(args.cfg)
+    if args.set_cfgs:
+        cfg_from_list(args.set_cfgs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {smi}")
-    arch = MNCArch(pre_nms_top_n=6000, post_nms_top_n=304, nms_chunk=256,
-                   compute_dtype=torch.bfloat16, fused_block1=args.fused_block1)
+    arch = MNCArch.from_cfg(fused_block1=args.fused_block1)
+    print(f"arch: {arch.trunk}, roi_conv5={arch.roi_conv5}, {arch.num_classes} classes, "
+          f"pre-NMS {arch.pre_nms_top_n}, post-NMS {arch.post_nms_top_n}, {arch.compute_dtype}")
     model = MNC(arch, device="cuda", seed=0)
     post = PostCfg.from_cfg(dets_per_class=16)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -113,6 +127,11 @@ def main() -> None:
     wall_ms = sorted(walls)[len(walls) // 2]
     print(f"wall time per request: median {wall_ms:.3f} ms of "
           + ", ".join(f"{w:.3f}" for w in walls))
+    torch.cuda.reset_peak_memory_stats()
+    for _, fn in _stages(model, post, images, infos):
+        fn()
+    torch.cuda.synchronize()
+    print(f"peak device memory of a request {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

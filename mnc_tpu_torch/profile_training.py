@@ -1,12 +1,17 @@
 """Where the time of one training step goes, on the GPU.
 
-    python3 -m mnc_tpu_torch.profile_training [--batch 2] [--iters 5] [--fused-block1]
+    python3 -m mnc_tpu_torch.profile_training [--batch 2] [--iters 5] [--fused-block1] \
+        [--cfg experiments/cfgs/x.yml] [--set KEY VAL ...]
 
-Drives the full-width 5-stage VGG-16 train step (the configuration of
-``chip_smoke.py``'s training phase: ``MNCArch.from_cfg(train=True)``, 640×1024
-canvas, pre-NMS 12000, post-NMS 2000, 128 RoIs and 256 anchors per image, bf16
-compute on f32 master parameters, blocks 1-2 frozen, seeded random init,
-synthetic shapes batches) and prints, for one step of ``--batch`` images:
+Drives the full-width 5-stage train step of ``MNCArch.from_cfg(train=True)``
+on the default cfg (the VGG-16 configuration of ``chip_smoke.py``'s training
+phase) or on the one that ``--cfg`` and ``--set`` make (``--cfg
+experiments/cfgs/mnc_coco_resnet101.yml --set NET.ROI_CONV5 True`` is the
+ResNet-101 COCO one): 640×1024 canvas, pre-NMS 12000, post-NMS 2000, 128
+RoIs and 256 anchors per image, bf16 compute on f32 master parameters, the
+first two trunk blocks or stages frozen, the solver of ``cfg.TRAIN`` (with
+its ``CLIP_GRADIENTS``), seeded random init, synthetic shapes batches; and
+prints, for one step of ``--batch`` images:
 
 - per-stage stream times from CUDA events at the stage boundaries of
   ``mnc_loss`` (forward), then backward and the optimizer update (a stage's
@@ -31,7 +36,7 @@ import time
 
 import torch
 
-from mnc_tpu_torch.config import cfg
+from mnc_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
 from mnc_tpu_torch.data.synthetic import SyntheticShapes
 from mnc_tpu_torch.models.mnc import MNC, MNCArch
 from mnc_tpu_torch.train.loop import draw_step_randoms, mnc_loss, train_cfg_from_cfg
@@ -43,19 +48,29 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--fused-block1", action="store_true")
+    ap.add_argument("--cfg", default=None, help="a YAML file merged into the cfg")
+    ap.add_argument("--set", dest="set_cfgs", nargs="*", default=None,
+                    help="KEY VALUE pairs set in the cfg after --cfg")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
+    if args.cfg:
+        cfg_from_file(args.cfg)
+    if args.set_cfgs:
+        cfg_from_list(args.set_cfgs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {smi}")
     arch = dataclasses.replace(MNCArch.from_cfg(train=True), fused_block1=args.fused_block1)
+    print(f"arch: {arch.trunk}, roi_conv5={arch.roi_conv5}, {arch.num_classes} classes, "
+          f"pre-NMS {arch.pre_nms_top_n}, post-NMS {arch.post_nms_top_n}, "
+          f"clip_gradients {cfg.TRAIN.CLIP_GRADIENTS}")
     train_cfg = train_cfg_from_cfg(cfg)
     model = MNC(arch, device="cuda", seed=0, train=True)
     opt = make_optimizer(model, base_lr=cfg.TRAIN.LEARNING_RATE, momentum=cfg.TRAIN.MOMENTUM,
                          weight_decay=cfg.TRAIN.WEIGHT_DECAY, gamma=cfg.TRAIN.GAMMA,
-                         stepsize=cfg.TRAIN.STEPSIZE)
+                         stepsize=cfg.TRAIN.STEPSIZE, clip_gradients=cfg.TRAIN.CLIP_GRADIENTS)
     data = SyntheticShapes(canvas_hw=arch.canvas, num_classes=6, max_gt=cfg.STATIC.MAX_GT,
                            gt_mask_size=28, seed=11)
     gen = torch.Generator(device="cuda").manual_seed(5)

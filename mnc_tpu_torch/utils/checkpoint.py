@@ -4,13 +4,19 @@ port's ``state_dict``, and an npz save/load of the train state.
 The JAX package stores conv kernels HWIO and Dense kernels (in, out); the
 port's ``nn.Conv2d`` weights are OIHW and ``nn.Linear`` weights (out, in).
 Both packages flatten NHWC into ``fc_mask`` and ``fc6``, so a Dense kernel
-needs only a transpose, with no row permutation.  Nothing here imports the
+needs only a transpose, with no row permutation.  A tree path maps to a
+parameter name by joining with dots, at any depth (VGG's
+``trunk/conv1_1/kernel`` is ``trunk.conv1_1.weight``, ResNet's
+``trunk/stage3_block2/bn2/scale`` is ``trunk.stage3_block2.bn2.scale``);
+the leaf ``kernel`` is the ``weight``, ``bias`` and ``scale`` keep their
+names, and ResNet's convolutions have no bias.  Nothing here imports the
 JAX package: ``load_npz`` reads the flat npz that
 ``mnc_tpu.utils.checkpoint.save_npz`` writes with numpy alone, and
 ``save_train_state`` writes the parameters under the same flat names
-(``params/<module>/<layer>/kernel|bias`` in JAX's layout), so that package's
-``load_npz`` reads them back; the step and the solver state ride along under
-``__meta__/`` and ``__opt__/`` names.  Orbax directories are not ported.
+(``params/<module>/.../kernel|bias|scale`` in JAX's layout), so that
+package's ``load_npz`` reads them back; the step and the solver state ride
+along under ``__meta__/`` and ``__opt__/`` names.  Orbax directories are not
+ported.
 """
 
 from __future__ import annotations
@@ -22,22 +28,29 @@ import torch
 def state_dict_from_jax(params: dict) -> dict:
     """Nested JAX params (``{"params": {"trunk": {"conv1_1": {"kernel",
     "bias"}}, ...}}``, with or without the top ``"params"`` level, numpy or
-    array leaves) → a ``state_dict`` for :class:`mnc_tpu_torch.models.mnc.MNC`.
+    array leaves, nested to any depth) → a ``state_dict`` for
+    :class:`mnc_tpu_torch.models.mnc.MNC`.
     """
-    tree = params.get("params", params)
     out = {}
-    for module, layers in tree.items():
-        for layer, leaves in layers.items():
-            kernel = np.asarray(leaves["kernel"], np.float32)
-            if kernel.ndim == 4:  # conv HWIO → OIHW
-                weight = kernel.transpose(3, 2, 0, 1)
-            elif kernel.ndim == 2:  # Dense (in, out) → Linear (out, in)
-                weight = kernel.T
-            else:
-                raise ValueError(f"{module}/{layer}/kernel has shape {kernel.shape}")
-            out[f"{module}.{layer}.weight"] = torch.from_numpy(np.ascontiguousarray(weight))
-            out[f"{module}.{layer}.bias"] = torch.from_numpy(
-                np.asarray(leaves["bias"], np.float32).copy())
+
+    def walk(prefix: str, tree: dict) -> None:
+        for key, v in tree.items():
+            name = f"{prefix}.{key}" if prefix else key
+            if isinstance(v, dict):
+                walk(name, v)
+                continue
+            a = np.array(v, np.float32)  # a copy: the tensor must own it
+            if key == "kernel":
+                if a.ndim == 4:  # conv HWIO → OIHW
+                    a = a.transpose(3, 2, 0, 1)
+                elif a.ndim == 2:  # Dense (in, out) → Linear (out, in)
+                    a = a.T
+                else:
+                    raise ValueError(f"{name} has shape {a.shape}")
+                name = f"{prefix}.weight"
+            out[name] = torch.from_numpy(np.ascontiguousarray(a))
+
+    walk("", params.get("params", params))
     return out
 
 
@@ -65,18 +78,21 @@ def load_npz(path: str) -> tuple[dict, dict]:
 
 
 def jax_params_from_state_dict(state_dict: dict) -> dict:
-    """The reverse bridge: a ``state_dict`` (or any ``{"module.layer.weight"
-    | ".bias": tensor}`` mapping, e.g. of gradients) → nested
-    ``{"params": {module: {layer: {"kernel", "bias"}}}}`` of f32 numpy
-    arrays in the JAX package's layout (conv HWIO, Dense (in, out))."""
+    """The reverse bridge: a ``state_dict`` (or any ``{"module....weight" |
+    ".bias" | ".scale": tensor}`` mapping, e.g. of gradients) → nested
+    ``{"params": {module: {...: {"kernel", "bias", "scale"}}}}`` of f32
+    numpy arrays in the JAX package's layout (conv HWIO, Dense (in, out))."""
     tree: dict = {}
     for name, t in state_dict.items():
-        module, layer, kind = name.split(".")
+        *path, kind = name.split(".")
         a = t.detach().to("cpu", torch.float32).numpy()
         if kind == "weight":
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
-        leaf = tree.setdefault(module, {}).setdefault(layer, {})
-        leaf["kernel" if kind == "weight" else "bias"] = np.ascontiguousarray(a)
+            kind = "kernel"
+        leaf = tree
+        for part in path:
+            leaf = leaf.setdefault(part, {})
+        leaf[kind] = np.ascontiguousarray(a)
     return {"params": tree}
 
 

@@ -156,3 +156,30 @@ def test_three_stage_and_no_bridge_repeat_the_first_pass(bridged, kw):
     for key in ("rois", "cls_prob", "mask_logits"):
         torch.testing.assert_close(out[key], out[f"stage3_{key}"], rtol=0, atol=0)
     assert not torch.equal(ref["rois"], ref["stage3_rois"])  # the 5-stage bridge moved them
+
+
+def test_dual_pathway_head_matches_jax():
+    """``NET.DUAL_PATHWAY``: the raw RoI features are pooled beside the
+    mask-pooled ones and concatenated after them before fc6, whose input is
+    twice as wide.  The batched cascade on bridged weights: validity
+    identical, boxes ≤1e-3 px, class probabilities ≤1e-5, mask logits and
+    bbox deltas ≤1e-4 of their max."""
+    kw = dict(SMALL, dual_pathway=True)
+    jm = JMNC(arch=JArch(compute_dtype=jnp.float32, **kw))
+    params = jm.init(jax.random.PRNGKey(1), jnp.zeros((96, 128, 3), jnp.float32),
+                     jnp.array([96.0, 128.0, 1.0]))
+    model = MNC(MNCArch(compute_dtype=torch.float32, **kw), device="cpu")
+    model.load_state_dict(state_dict_from_jax(params))
+    assert model.classify_head.fc6.weight.shape == (64, 2 * 2 * 2 * 512)
+    imgs, infos = _images(3), np.array([[96.0, 128.0, 1.0], [80.0, 120.0, 1.0]], np.float32)
+    want = jax.jit(lambda p, i, f: jm.apply(p, i, f, method=JMNC.apply_batch))(
+        params, jnp.asarray(imgs), jnp.asarray(infos))
+    got = model.apply_batch(torch.from_numpy(imgs), torch.from_numpy(infos))
+    np.testing.assert_array_equal(got["roi_valid"].numpy(), np.asarray(want["roi_valid"]))
+    np.testing.assert_allclose(got["rois"].numpy(), np.asarray(want["rois"]), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got["cls_prob"].numpy(), np.asarray(want["cls_prob"]), rtol=0,
+                               atol=1e-5)
+    for key in ("mask_logits", "bbox_pred", "stage3_mask_logits"):
+        w = np.asarray(want[key])
+        np.testing.assert_allclose(got[key].numpy(), w, rtol=0,
+                                   atol=1e-4 * max(1.0, np.abs(w).max()), err_msg=key)

@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_no_mnc_tpu():
             "mnc_tpu_torch.ops.losses", "mnc_tpu_torch.train.targets",
             "mnc_tpu_torch.train.optim", "mnc_tpu_torch.train.loop",
             "mnc_tpu_torch.data.synthetic", "mnc_tpu_torch.tools.train_net",
-            "mnc_tpu_torch.profile_training"} <= set(mods)
+            "mnc_tpu_torch.profile_training", "mnc_tpu_torch.models.resnet",
+            "mnc_tpu_torch.utils.weights"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -161,7 +162,8 @@ def test_arch_and_post_from_cfg():
     for f in ("canvas", "num_classes", "mask_size", "warp_hw", "pooled_hw", "n_stages",
               "fc_dim", "mask_fc_dim", "pre_nms_top_n", "post_nms_top_n",
               "rpn_nms_thresh", "rpn_min_size", "nms_chunk", "bbox_means", "bbox_stds",
-              "suppress_untrainable_anchors"):
+              "suppress_untrainable_anchors", "trunk", "dual_pathway", "roi_conv5",
+              "resnet_stride_in_3x3"):
         assert getattr(a, f) == getattr(ja, f), f
     assert a.compute_dtype == torch.bfloat16
     t, jt = MNCArch.from_cfg(train=True), JArch.from_cfg(train=True)

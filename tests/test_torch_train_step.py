@@ -2,8 +2,9 @@
 JAX package, on bridged weights, numpy-seeded images and shared draws, at the
 small architecture of ``tests/test_train.py``, 3- and 5-stage, one image
 and a batch of two.  (The 3-stage cases run the same tests from
-``tests/test_torch_train_step_3stage.py``, so that the two slow compilations
-of the JAX gradient can proceed on two workers.)
+``tests/test_torch_train_step_3stage.py``, and a ResNet-50 with the per-RoI
+conv5 head from ``tests/test_torch_train_step_resnet.py``, so that the slow
+compilations of the JAX gradient can proceed on several workers.)
 
 Both sides compute in float64 here (JAX under a local ``jax.enable_x64``).
 In float32 the two packages' sums differ in their last bits, and of the
@@ -45,6 +46,7 @@ from mnc_tpu_torch.train.loop import StepDraws, TrainState, make_train_step, mnc
 from mnc_tpu_torch.train.optim import make_optimizer
 from mnc_tpu_torch.utils.checkpoint import (jax_params_from_state_dict, load_train_state,
                                             save_train_state, state_dict_from_jax)
+from tests.test_torch_resnet import _leaves, randomize_bn
 
 SMALL = dict(canvas=(128, 160), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
              warp_hw=4, fc_dim=64, mask_fc_dim=32, pre_nms_top_n=128, post_nms_top_n=32,
@@ -103,24 +105,41 @@ def _j_sampled(params, jmodel, jarch, anchors, ex, key):
                                fg_fraction=0.25, mask_size=9)
 
 
-_J_RESULTS: dict = {}  # (n_stages, image index) -> JAX losses, gradients, targets (f64)
+_J_RESULTS: dict = {}  # (JAX arch, image index) -> JAX losses, gradients, targets (f64)
+
+
+def frozen_parameter_names(model: MNC) -> list:
+    """What the trunk's frozen blocks (VGG) or stem and stages (ResNet)
+    hold: the parameters that get no gradient."""
+    a = model.arch
+    if a.trunk == "vgg16":
+        prefixes = tuple(f"trunk.conv{b + 1}_" for b in range(a.trunk_frozen))
+    else:
+        prefixes = (("trunk.conv1.", "trunk.bn1.") if a.trunk_frozen >= 1 else ()) + tuple(
+            f"trunk.stage{s}_" for s in range(2, a.trunk_frozen + 1))
+    return sorted(n for n, _ in model.named_parameters() if n.startswith(prefixes))
 
 
 class Case:
     """Both packages' losses, gradients and stepped parameters for one
-    (n_stages, image indices) setting."""
+    (n_stages, image indices, architecture overrides) setting.  A ResNet's
+    FrozenBN leaves are drawn at random (``randomize_bn``): at init every
+    block is its shortcut."""
 
-    def __init__(self, n_stages, indices, f64=True):
+    def __init__(self, n_stages, indices, f64=True, arch_kw=None):
         b = len(indices)
         jdt, tdt = (jnp.float64, torch.float64) if f64 else (jnp.float32, torch.float32)
-        jarch = JArch(compute_dtype=jdt, n_stages=n_stages, **SMALL)
-        arch = MNCArch(compute_dtype=tdt, n_stages=n_stages, **SMALL)
+        kw = dict(SMALL, n_stages=n_stages, **(arch_kw or {}))
+        jarch = JArch(compute_dtype=jdt, **kw)
+        arch = MNCArch(compute_dtype=tdt, **kw)
         jmodel = JMNC(arch=jarch)
         data = SyntheticShapes(**DATA_KW)
         batch = {k: (v.astype(np.float64) if f64 and v.dtype == np.float32 else v)
                  for k, v in data.batch(indices).items()}
         params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(batch["image"][0]),
                              jnp.asarray(batch["im_info"][0]))
+        if arch.trunk != "vgg16":
+            params = randomize_bn({"params": params["params"]}, np.random.RandomState(12))
         anchors = jnp.asarray(jarch.all_anchors())
         # image i always gets key i and keep-masks i, in a batch or alone
         keys = jax.random.split(jax.random.PRNGKey(42), 2)[np.asarray(indices)]
@@ -140,12 +159,12 @@ class Case:
                 MASKS[:] = masks
                 _, losses = j_mnc_loss(params, jmodel, ex, keys[i], jarch, anchors, TRAIN_CFG)
                 res = (losses, jax.tree.map(jnp.zeros_like, params), None)
-            elif (n_stages, indices[i]) not in _J_RESULTS:
+            elif (jarch, indices[i]) not in _J_RESULTS:
                 # a single-image case reuses what the batch case computed
                 ((_, losses), g), tgt = _jitted_loss_and_grad(jmodel, jarch)(
                     params, ex, keys[i], masks)
-                _J_RESULTS[n_stages, indices[i]] = (losses, g, tgt)
-            losses, g, tgt = res if not f64 else _J_RESULTS[n_stages, indices[i]]
+                _J_RESULTS[jarch, indices[i]] = (losses, g, tgt)
+            losses, g, tgt = res if not f64 else _J_RESULTS[jarch, indices[i]]
             self.j_losses.append({k: float(v) for k, v in losses.items()})
             grads.append(g)
             self.j_tgt.append(tgt)
@@ -199,14 +218,15 @@ class Case:
             T.proposal_targets = orig
 
 
-def case_fixture(n_stages):
-    """A module-scoped ``case`` fixture over a batch of two and one image."""
+def case_fixture(n_stages, **arch_kw):
+    """A module-scoped ``case`` fixture over a batch of two and one image;
+    ``arch_kw`` overrides fields of both packages' architectures."""
 
     @pytest.fixture(scope="module", params=[(0, 1), (0,)], ids=["batch2", "single"])
     def case(request):
         with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
             mp.setattr(nn.Dropout, "__call__", _fixed_dropout)
-            yield Case(n_stages, request.param)
+            yield Case(n_stages, request.param, arch_kw=arch_kw)
 
     return case
 
@@ -255,29 +275,29 @@ def test_sampled_rois_and_labels_identical(case):
 
 
 def test_gradient_leaves_match(case):
-    want, got = case.j_grads["params"], case.grads["params"]
-    assert {m: set(v) for m, v in want.items()} == {m: set(v) for m, v in got.items()}
-    for m, layers in want.items():
-        for l, leaves in layers.items():
-            for kind, w in leaves.items():
-                w = np.asarray(w)
-                np.testing.assert_allclose(got[m][l][kind], w, rtol=0,
-                                           atol=1e-4 * max(np.abs(w).max(), 1e-12),
-                                           err_msg=f"{m}/{l}/{kind}")
-    # blocks 1-2 are frozen: no gradient in the port, zeros in JAX
-    assert case.frozen == sorted(f"trunk.conv{b}_{i}.{k}" for b in (1, 2) for i in (1, 2)
-                                 for k in ("weight", "bias"))
-    assert np.abs(np.asarray(want["rpn_head"]["rpn_bbox_pred"]["kernel"])).max() > 0
+    want, got = _leaves(case.j_grads["params"]), _leaves(case.grads["params"])
+    assert set(want) == set(got)
+    for name, w in want.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[name], w, rtol=0,
+                                   atol=1e-4 * max(np.abs(w).max(), 1e-12), err_msg=name)
+    # blocks 1-2 (VGG) or the stem and stage 2 (ResNet) are frozen: no
+    # gradient in the port, zeros in JAX
+    assert case.frozen == frozen_parameter_names(case.model)
+    if case.model.arch.trunk == "vgg16":
+        assert case.frozen == sorted(f"trunk.conv{b}_{i}.{k}" for b in (1, 2)
+                                     for i in (1, 2) for k in ("weight", "bias"))
+    else:
+        assert len(case.frozen) == 3 + 3 * 9 + 3  # stem, stage 2's blocks, its projection
+    assert np.abs(np.asarray(want["rpn_head/rpn_bbox_pred/kernel"])).max() > 0
 
 
 def test_parameters_after_one_step_match(case):
-    got = jax_params_from_state_dict(case.model.state_dict())["params"]
-    want = case.j_params["params"]
-    for m, layers in want.items():
-        for l, leaves in layers.items():
-            for kind, w in leaves.items():
-                np.testing.assert_allclose(got[m][l][kind], np.asarray(w), rtol=0, atol=1e-6,
-                                           err_msg=f"{m}/{l}/{kind}")
+    got = _leaves(jax_params_from_state_dict(case.model.state_dict())["params"])
+    want = _leaves(case.j_params["params"])
+    assert set(want) == set(got)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], np.asarray(w), rtol=0, atol=1e-6, err_msg=name)
     assert case.state.step == 1 and case.state.opt.count == 1
 
 
