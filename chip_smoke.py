@@ -14,7 +14,9 @@ Phases, each printing its lines before the two JSON lines at the end:
    inside a chunk and interleaved invalid boxes at full K; the RoI-warp
    backward also on many small boxes, the full canvas and boxes outside the
    map; the paste also on boxes outside the canvas, of 1 px and over all of
-   it, with a negative threshold and a width that is not a multiple of 16),
+   it, with a negative threshold and a width that is not a multiple of 16;
+   the warp also on the portrait canvas's 64x40 map, the paste also at
+   M = 28 on both canvases),
    then timed (CUDA events, after warm-up) beside the plain version and,
    where one PyTorch call computes the same function, that call.  NMS, the
    paste (N = 400, the serving request, and N = 100) and block 1 (B = 2 and
@@ -43,7 +45,17 @@ Phases, each printing its lines before the two JSON lines at the end:
       (fc6/fc7 on 7·7·1024 inputs): one request;
    e. the same conv5 configuration in training (``from_cfg(train=True)``,
       stem and stage 2 frozen, ``CLIP_GRADIENTS`` 10): 3 steps of 2 images,
-      checked as in b.
+      checked as in b.;
+   f. a user's images with the reference weights: a full-size seeded VGG-16
+      caffemodel (mask size 28) written by the port's fabricator and
+      imported with ``load_import_weights`` (auto-config to M = 28), then
+      ``MNCPipeline.detect_many`` over 16 uint8 BGR images of six photo
+      sizes, 5 of them portrait (the 1024x640 view of the same parameters),
+      batch 4, the default TEST config; its images/s and the split of its
+      time (host prep, device, device → host, host finalize); host_paste
+      and single ``detect`` against the stream; then a small f32 model's
+      detect_many and ``tools/test_net`` on ``synthetic_8`` (one npz), card
+      against CPU.
 5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
    of phase 3, per shape where there are several; bounds from this run's
    inputs), then ``{"ok": true, ...}``.
@@ -59,8 +71,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -69,6 +83,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, f32 without tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 CANVAS = (640, 1024)
+PORTRAIT = (1024, 640)  # the transposed canvas that portrait images run on
 
 
 def log(*args):
@@ -115,19 +130,22 @@ def random_boxes(g, n, h, w, lo=16.0, hi=500.0):
 
 def check_roi_warp(g):
     """Kernel A on the VGG-16 conv5 map (C = 512) and the ResNet conv4 map
-    (C = 1024) of a serving request; the first is the main row."""
+    (C = 1024) of a serving request, and on the portrait canvas's 64 x 40
+    map (C = 512); the first is the main row."""
     shapes = {f"C={c}": _check_roi_warp(g, c) for c in (512, 1024)}
+    shapes["portrait 64x40, C=512"] = _check_roi_warp(g, 512, PORTRAIT)
     return dict(shapes["C=512"], shapes=shapes)
 
 
-def _check_roi_warp(g, c):
+def _check_roi_warp(g, c, canvas=CANVAS):
     from mnc_tpu_torch.kernels import roi_warp_cuda
     from mnc_tpu_torch.ops.roi_warp import bin_centers, roi_warp_plain
     import torch.nn.functional as F
 
-    b, n, (h, w), out_hw, s = 4, 304, (40, 64), (14, 14), 1.0 / 16
+    b, n, out_hw, s = 4, 304, (14, 14), 1.0 / 16
+    h, w = canvas[0] // 16, canvas[1] // 16
     feat32 = torch.randn(b, h, w, c, generator=g, device="cuda")
-    rois = torch.stack([random_boxes(g, n, *CANVAS) for _ in range(b)])
+    rois = torch.stack([random_boxes(g, n, *canvas) for _ in range(b)])
     result = {}
     for dt, tol_scale in ((torch.float32, 1e-5), (torch.bfloat16, 2 * 2.0 ** -7)):
         f = feat32.to(dt)
@@ -135,7 +153,8 @@ def _check_roi_warp(g, c):
         want = roi_warp_plain(f, rois, out_hw, s)
         err = (got.float() - want.float()).abs().max().item()
         tol = tol_scale * f.float().abs().max().item()
-        log(f"kernel A roi_warp {dt} C={c}: max_abs_err {err:.3e} (tolerance {tol:.3e})")
+        log(f"kernel A roi_warp {dt} map {h}x{w} C={c}: max_abs_err {err:.3e} "
+            f"(tolerance {tol:.3e})")
         if not err <= tol:
             raise AssertionError(f"roi_warp kernel disagrees with its plain version in {dt}")
         result[dt] = err
@@ -155,7 +174,8 @@ def _check_roi_warp(g, c):
     l_ms = cuda_ms(lib)
     lib_err = (lib().reshape(b, c, n, *out_hw).permute(0, 2, 3, 4, 1).float()
                - roi_warp_cuda(f, rois, out_hw, s).float()).abs().max().item()
-    log(f"kernel A roi_warp bf16 B={b} N={n} C={c}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+    log(f"kernel A roi_warp bf16 B={b} N={n} map {h}x{w} C={c}: kernel_ms {k_ms:.4f} "
+        f"plain_ms {p_ms:.4f} "
         f"library_ms(grid_sample) {l_ms:.4f} (grid_sample vs kernel max diff {lib_err:.3e})")
     out_bytes = b * n * out_hw[0] * out_hw[1] * c * f.element_size()
     bms, by = bound_ms(nbytes(f, rois) + out_bytes, 8.0 * b * n * out_hw[0] * out_hw[1] * c)
@@ -520,7 +540,10 @@ def check_nms(g):
     return dict(max_abs_err=0.0, **total, bound_by=by, library_ms=None, shapes=shapes)
 
 
-PASTE_SHAPES = {"serving request": 400, "N=100": 100}  # label: detections N (M = 21)
+# label: (detections N, canvas, mask size M); M = 28 is what a caffemodel's
+# auto-config gives (the detect_many path below), on both canvases
+PASTE_SHAPES = {"serving request": (400, CANVAS, 21), "N=100": (100, CANVAS, 21),
+                "M=28": (400, CANVAS, 28), "M=28, portrait 1024x640": (400, PORTRAIT, 28)}
 
 
 def _paste_inputs(g, boxes, h, w, m=21):
@@ -568,19 +591,22 @@ def _paste_agrees(label, got, wy, masks, wxt, thresh):
 
 def check_paste(g):
     """Kernel C against the f32 product: the serving request's N = 400 and
-    N = 100 at 640x1024, then edge boxes with a positive and a negative
-    threshold and a canvas width that is not a multiple of 16; time, plain
+    N = 100 at 640x1024, M = 28 on both canvases, then edge boxes with a
+    positive and a negative threshold (also at M = 28 on the portrait
+    canvas) and a canvas width that is not a multiple of 16; time, plain
     and library time and byte bound per shape."""
     from mnc_tpu_torch.kernels import paste_binarize_cuda
     from mnc_tpu_torch.ops.masks import paste_binarize_plain
 
-    (h, w), m, thresh = CANVAS, 21, 0.4
-    for label, (hh, ww) in (("edge boxes", CANVAS), ("W % 16 != 0", (97, 203))):
+    thresh = 0.4
+    for label, (hh, ww), m in (("edge boxes", CANVAS, 21),
+                               ("edge boxes M=28, portrait", PORTRAIT, 28),
+                               ("W % 16 != 0", (97, 203), 21)):
         ins = _paste_inputs(g, _paste_edge_boxes(g, hh, ww), hh, ww, m)[:3]
         for t in (thresh, -0.1):
             _paste_agrees(label, paste_binarize_cuda(*ins, t), *ins, t)
     shapes, worst = {}, 0.0
-    for label, n in PASTE_SHAPES.items():
+    for label, (n, (h, w), m) in PASTE_SHAPES.items():
         wy, masks, wxt, wx = _paste_inputs(g, random_boxes(g, n, h, w, lo=20.0, hi=500.0),
                                            h, w, m)
         got = paste_binarize_cuda(wy, masks, wxt, thresh)
@@ -594,11 +620,12 @@ def check_paste(g):
         cols = (wxt != 0).any(-2).sum(-1).double()
         flops = (2.0 * m * m * rows + 2.0 * m * rows * cols).sum().item()
         bms, by = bound_ms(nbytes(wy, masks, wxt) + n * h * w, flops)
-        log(f"kernel C paste {label} N={n}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+        log(f"kernel C paste {label} N={n} {h}x{w} M={m}: kernel_ms {k_ms:.4f} "
+            f"plain_ms {p_ms:.4f} "
             f"library_ms(einsum) {l_ms:.4f} bound_ms {bms:.4f} ({by}, "
             f"{bms / k_ms:.0%} of it)")
-        shapes[label] = dict(n=n, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms,
-                             bound_by=by)
+        shapes[label] = dict(n=n, canvas=[h, w], m=m, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                             bound_ms=bms, bound_by=by)
     main = shapes["serving request"]
     # for a bool output: the largest |product - threshold| of a differing pixel
     return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
@@ -940,6 +967,271 @@ def small_model_agrees(arch_kw=None):
         raise AssertionError("small model: card and CPU disagree beyond tolerance")
 
 
+# the detect_many stream: common photo sizes, both orientations (h, w)
+STREAM_SIZES = [(375, 500), (500, 375), (333, 500), (480, 640), (427, 640), (640, 480)]
+
+
+def import_caffemodel(tmp):
+    """Write a full-size seeded VGG-16 caffemodel with the port's fabricator
+    (binary, mask size 28) and import it as a user would: the default cfg's
+    arch, auto-configured by the file (M = 21 → 28, bbox de-normalization
+    and anchor suppression off), on the card."""
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.tools import fabricate_caffemodel
+    from mnc_tpu_torch.utils.caffemodel import read_caffemodel
+    from mnc_tpu_torch.utils.checkpoint import (jax_params_from_state_dict,
+                                                load_import_weights, state_dict_from_jax)
+
+    path = os.path.join(tmp, "mnc_vgg16.caffemodel")
+    t0 = time.perf_counter()
+    fabricate_caffemodel.main([path, "--seed", "0"])
+    t1 = time.perf_counter()
+
+    def make_params(a):
+        return jax_params_from_state_dict(MNC(a, device="cpu", train=True).state_dict())
+
+    arch = MNCArch.from_cfg()
+    params, arch = load_import_weights(path, None, arch, make_params(arch),
+                                       make_params=make_params)
+    if (arch.mask_size, arch.bbox_pred_normalized, arch.suppress_untrainable_anchors) != (
+            28, False, False):
+        raise AssertionError(f"caffemodel import: unexpected arch {arch}")
+    model = MNC(arch, device="cuda")
+    model.load_state_dict(state_dict_from_jax(params))
+    fc6 = read_caffemodel(path)["fc6"][0]  # (4096, 512·7·7), inputs CHW
+    got = model.classify_head.fc6.weight.float().cpu().numpy()  # (4096, 7·7·512), HWC
+    want = fc6.reshape(4096, 512, 7, 7).transpose(0, 2, 3, 1).reshape(4096, -1)
+    err = float(abs(got - want).max())
+    log(f"caffemodel import: {os.path.getsize(path) / 2**20:.1f} MiB written in {t1 - t0:.1f} s, "
+        f"imported in {time.perf_counter() - t1:.1f} s; mask_size {arch.mask_size}, "
+        f"bbox_pred_normalized {arch.bbox_pred_normalized}, suppress_untrainable_anchors "
+        f"{arch.suppress_untrainable_anchors}; fc6 on the card vs the file (CHW → HWC): "
+        f"max abs diff {err:.2e} (tolerance 2e-4: half a bf16 ulp of |w| < 0.06)")
+    if not err <= 2e-4:
+        raise AssertionError("caffemodel import: fc6 weights did not land in HWC order")
+    return model
+
+
+def _check_dets(name, res, images, num_classes):
+    for im, d in zip(images, res):
+        k = len(d["scores"])
+        if d["full_masks"].shape != (k, *im.shape[:2]) or d["full_masks"].dtype != "uint8":
+            raise AssertionError(f"{name}: full_masks {d['full_masks'].shape} for {im.shape}")
+        if not all(np.isfinite(d[key]).all() for key in ("boxes", "scores", "masks")):
+            raise AssertionError(f"{name}: a value is not finite")
+        cls = d["classes"][d["valid"]]
+        if not d["valid"].any() or not ((cls >= 1) & (cls < num_classes)).all():
+            raise AssertionError(f"{name}: no valid detection or a class out of range")
+
+
+def stream_path(device_label, model):
+    """``MNCPipeline.detect_many`` over 16 seeded uint8 BGR images of mixed
+    sizes and orientations, batch 4, the default TEST config (uint8 upload,
+    packed transfer, auto-portrait: the portrait images run on the 1024x640
+    view of the same parameters).  Checked: shapes, finite values, the
+    portrait variant ran; host_paste gives the same boxes, scores and
+    classes; one ``detect`` gives that image's selections and scores.  Returns the
+    launch counts of one stream and the stream's numbers."""
+    from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline
+
+    rs = np.random.RandomState(0)
+    images = [rs.randint(0, 256, (*STREAM_SIZES[i % 6], 3)).astype(np.uint8)
+              for i in range(16)]
+    pipe = MNCPipeline(model)
+    t0 = time.perf_counter()
+    warmed = pipe.prewarm(batch_size=4)
+    log(f"detect_many: prewarm of {warmed} in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.detect_many(images, batch_size=4)
+    walls = [time.perf_counter() - t0]
+    counts = launch_counts()
+    if tuple(model.arch.canvas[::-1]) not in pipe._variants:
+        raise AssertionError("detect_many: the portrait canvas did not run")
+    _check_dets("detect_many", res, images, model.arch.num_classes)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pipe.detect_many(images, batch_size=4)
+        walls.append(time.perf_counter() - t0)
+    timings: dict = {}
+    t0 = time.perf_counter()
+    pipe.detect_many(images, batch_size=4, timings=timings)
+    split_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_portrait = sum(h > w for h, w in (im.shape[:2] for im in images))
+    log(f"detect_many: launches {counts}; {n_portrait} of 16 images portrait; valid "
+        f"detections per image {[int(d['valid'].sum()) for d in res]}; peak memory "
+        f"{peak:.2f} GiB")
+    log(f"detect_many on {device_label}: 16 images ({', '.join(f'{h}x{w}' for h, w in STREAM_SIZES)}"
+        f"), batch 4: wall " + ", ".join(f"{x * 1e3:.1f} ms" for x in walls)
+        + f"; {16 / min(walls):.2f} images/s at the best, {16 * len(walls) / sum(walls):.2f} "
+        f"over the {len(walls)} streams")
+    log(f"detect_many split on {device_label} (a synchronize closing each phase; "
+        f"wall {split_wall * 1e3:.1f} ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timings.items()))
+    unpacked: dict = {}  # the same stream with the masks sent as bytes, not bits
+    t0 = time.perf_counter()
+    res_u = pipe.detect_many(images, batch_size=4, packed=False, timings=unpacked)
+    log(f"detect_many split, packed=False, on {device_label} (wall "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in unpacked.items()))
+    if not all(np.array_equal(a["full_masks"], b["full_masks"]) for a, b in zip(res_u, res)):
+        raise AssertionError("detect_many: packed and unpacked full masks differ")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.detect_many(images, batch_size=4)
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    log(f"detect_many traced on {device_label}: device busy {busy_ms:.1f} ms of the best "
+        f"stream's wall {min(walls) * 1e3:.1f} ms (idle share {1 - busy_ms / (min(walls) * 1e3):.3f};"
+        f" the traced stream's own wall {traced_ms:.1f} ms); top kernels: "
+        + "; ".join(f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:60]}"
+                    for e in rows[:10]))
+
+    hp = pipe.detect_many(images, batch_size=4, host_paste=True)
+    _check_dets("detect_many host_paste", hp, images, model.arch.num_classes)
+    for key in ("boxes", "scores", "classes", "valid"):
+        if not all(np.array_equal(a[key], b[key]) for a, b in zip(hp, res)):
+            raise AssertionError(f"detect_many: host_paste {key} differ from the pasting run")
+    log("detect_many host_paste: boxes, scores, classes and valid bit-equal to the "
+        "pasting run")
+    # The fabricated weights (seeded, scale 0.01) leave every class
+    # probability near 1/21, so detections tie to ~1e-5 and their order
+    # within those ties follows the last bits, which a batch of 1 and a batch
+    # of 4 (other GEMM shapes in bf16) round differently.  At full width a
+    # single detect is held to the stream's selections and scores rank by
+    # rank; small_detect_many_agrees holds the whole result on the card.
+    for j in (0, 1):  # a landscape and a portrait image
+        one = pipe.detect(images[j])
+        score_diff = float(np.abs(one["scores"] - res[j]["scores"]).max())
+        same = (np.array_equal(one["valid"], res[j]["valid"])
+                and np.array_equal(np.sort(one["classes"]), np.sort(res[j]["classes"])))
+        box_diff = float(np.abs(one["boxes"] - res[j]["boxes"]).max())
+        log(f"detect of image {j} ({images[j].shape[0]}x{images[j].shape[1]}) vs its "
+            f"detect_many result: valid and the classes' multiset "
+            f"{'identical' if same else 'DIFFER'}; scores rank by rank within "
+            f"{score_diff:.2e} (tolerance 1e-4); boxes rank by rank up to {box_diff:.1f} px "
+            f"apart (near-tied detections change places)")
+        if not same or score_diff > 1e-4:
+            raise AssertionError("detect differs from detect_many beyond tolerance")
+    stats = dict(images=16, batch=4, wall_ms=[x * 1e3 for x in walls],
+                 images_per_s=16 / min(walls), split_ms={k: v * 1e3 for k, v in timings.items()},
+                 split_unpacked_ms={k: v * 1e3 for k, v in unpacked.items()},
+                 device_busy_ms=busy_ms,
+                 peak_gib=peak)
+    return counts, stats
+
+
+@contextlib.contextmanager
+def cfg_restored():
+    from mnc_tpu_torch import config as C
+
+    saved = C.cfg.clone()
+    try:
+        yield C.cfg
+    finally:
+        C.cfg.clear()
+        C.cfg.update(saved)
+
+
+def small_detect_many_agrees():
+    """A small f32 VGG-16 model through detect_many on the card and on the
+    CPU (plain versions of every kernel), on mixed sizes of both
+    orientations: selections identical, boxes 1e-3 px, scores 1e-5, soft
+    masks 1e-4, full masks differing on < 1e-3 of the pixels; and on the
+    card, one ``detect`` against its detect_many result, to the same
+    tolerances."""
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
+
+    arch = MNCArch(canvas=(64, 96), anchor_scales=(1, 2, 4), num_classes=4, mask_size=9,
+                   warp_hw=4, n_stages=5, compute_dtype=torch.float32, fc_dim=32,
+                   mask_fc_dim=16, pre_nms_top_n=32, post_nms_top_n=8, rpn_min_size=2.0)
+    rs = np.random.RandomState(2)
+    images = [rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+              for h, w in ((60, 120), (120, 60), (50, 100), (48, 96), (100, 55))]
+    out = {}
+    with cfg_restored() as cfg:
+        cfg.TEST.SCALES, cfg.TEST.MAX_SIZE = (48,), 96
+        for dev in ("cuda", "cpu"):
+            pipe = MNCPipeline(MNC(arch, device=dev, seed=3),
+                               PostCfg(dets_per_class=4, max_per_image=6, vote_top_k=8))
+            out[dev] = pipe.detect_many(images, batch_size=2)
+            if dev == "cuda":  # one image alone against the stream, on the card
+                singles = [pipe.detect(images[j]) for j in (0, 1)]
+    worst = {"boxes": 0.0, "scores": 0.0, "masks": 0.0, "full_masks": 0.0}
+    for g, c in zip(out["cuda"], out["cpu"]):
+        if not (np.array_equal(g["valid"], c["valid"]) and np.array_equal(g["classes"],
+                                                                          c["classes"])):
+            raise AssertionError("small detect_many: selections differ between card and CPU")
+        for key in ("boxes", "scores", "masks"):
+            worst[key] = max(worst[key], float(np.abs(g[key] - c[key]).max()))
+        worst["full_masks"] = max(worst["full_masks"],
+                                  float((g["full_masks"] != c["full_masks"]).mean()))
+    log(f"small f32 detect_many (5 images, both orientations), card vs CPU: selections "
+        f"identical; max abs diff {worst} (tolerances boxes 1e-3, scores 1e-5, masks 1e-4, "
+        f"full-mask pixel share 1e-3)")
+    single = {"boxes": 0.0, "scores": 0.0, "masks": 0.0, "full_masks": 0.0}
+    for j, one in zip((0, 1), singles):
+        want = out["cuda"][j]
+        if not (np.array_equal(one["valid"], want["valid"])
+                and np.array_equal(one["classes"], want["classes"])):
+            raise AssertionError("small detect_many: detect's selections differ on the card")
+        for key in ("boxes", "scores", "masks"):
+            single[key] = max(single[key], float(np.abs(one[key] - want[key]).max()))
+        single["full_masks"] = max(single["full_masks"],
+                                   float((one["full_masks"] != want["full_masks"]).mean()))
+    log(f"small f32 detect of images 0 and 1 vs their detect_many results on the card: "
+        f"selections identical; max abs diff {single}")
+    for diffs in (worst, single):
+        if (diffs["boxes"] > 1e-3 or diffs["scores"] > 1e-5 or diffs["masks"] > 1e-4
+                or diffs["full_masks"] > 1e-3):
+            raise AssertionError("small detect_many: results disagree beyond tolerance")
+
+
+def test_net_agrees(tmp):
+    """The port's test_net on synthetic_8 with one npz (a small f32 model),
+    on the card and on the CPU: the same AP table."""
+    import io
+
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.tools import test_net
+    from mnc_tpu_torch.utils.checkpoint import jax_params_from_state_dict, save_npz
+
+    small = ["NET.FC_DIM", "64", "NET.MASK_FC_DIM", "32", "NET.COMPUTE_DTYPE", "float32"]
+    arch = MNCArch(canvas=(128, 160), num_classes=6, anchor_scales=(2, 4, 8), rpn_min_size=4.0,
+                   fc_dim=64, mask_fc_dim=32, compute_dtype=torch.float32)
+    npz = os.path.join(tmp, "synthetic.npz")
+    save_npz(npz, jax_params_from_state_dict(MNC(arch, device="cpu", seed=1).state_dict()),
+             {"bbox_pred_normalized": True})
+    tables = {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with cfg_restored(), contextlib.redirect_stdout(buf):
+            test_net.main(["--imdb", "synthetic_8", "--npz", npz, "--device", dev,
+                           "--eval-batch", "4", "--set", *small])
+        lines = buf.getvalue().splitlines()
+        start = next(i for i, ln in enumerate(lines) if ln.startswith("~~~~~~"))
+        tables[dev] = "\n".join(lines[start:])
+        log(f"test_net synthetic_8 on {dev}: {time.perf_counter() - t0:.1f} s; {lines[-1]}")
+    if tables["cuda"] != tables["cpu"]:
+        raise AssertionError("test_net: the AP tables of the card and the CPU differ:\n"
+                             + tables["cuda"] + "\n---\n" + tables["cpu"])
+    log("test_net synthetic_8: the AP tables of the card and the CPU are identical "
+        f"({len(tables['cpu'].splitlines())} lines)")
+
+
 CHECKS = {"roi_warp": check_roi_warp, "roi_warp_bwd": check_roi_warp_bwd, "nms": check_nms,
           "paste_binarize": check_paste, "block1": check_block1}
 
@@ -1017,6 +1309,14 @@ def main(argv=None) -> int:
                 arch.trunk_frozen, cfg.TRAIN.CLIP_GRADIENTS) == (
                     "resnet101", True, 12000, 2000, 2, 10.0), arch
         by_path["train_resnet101_conv5"], _ = train_path(label, "ResNet-101 COCO conv5", arch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        model = import_caffemodel(tmp)
+        by_path["detect_many"], _ = stream_path(label, model)
+        del model
+        torch.cuda.empty_cache()
+        small_detect_many_agrees()
+        test_net_agrees(tmp)
 
     # phase 5: report
     meta = {
@@ -1034,6 +1334,7 @@ def main(argv=None) -> int:
     # the paths that must launch each kernel
     serving = ("serve", "serve_resnet101_conv5", "serve_resnet101_fc")
     training = ("train", "train_resnet101_conv5")
+    serving += ("detect_many",)
     must = {"roi_warp": serving + training, "roi_warp_bwd": training,
             "nms": serving + training, "paste_binarize": serving,
             "block1": ("train_fused_block1",)}

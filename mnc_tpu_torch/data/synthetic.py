@@ -105,6 +105,21 @@ class SyntheticShapes:
             "gt_masks": gt_masks,
         }
 
+    def full_masks(self, index: int) -> np.ndarray:
+        """(G_valid, H, W) binary canvas-space gt masks for evaluation."""
+        ex = self.example(index)
+        h, w = self.canvas_hw
+        out = []
+        for i in range(self.max_gt):
+            if not ex["gt_valid"][i]:
+                continue
+            x1, y1, x2, y2 = ex["gt_boxes"][i].astype(int)
+            canvas = np.zeros((h, w), np.float32)
+            canvas[y1:y2 + 1, x1:x2 + 1] = _render_shape(int(ex["gt_classes"][i]) - 1,
+                                                         y2 - y1 + 1, x2 - x1 + 1)
+            out.append(canvas)
+        return np.stack(out) if out else np.zeros((0, h, w), np.float32)
+
     def batch(self, indices) -> dict:
         """Stack examples along a leading batch axis."""
         exs = [self.example(i) for i in indices]

@@ -14,6 +14,7 @@ counterpart.  Training uses the stage methods (``features``, ``rpn``,
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import warnings
@@ -414,6 +415,18 @@ class MNC(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.anchors.device
+
+    def for_canvas(self, canvas_hw: tuple[int, int]) -> "MNC":
+        """This model on another canvas (the portrait transpose, a
+        ``TEST.CANVAS_BUCKETS`` entry): the same modules and parameter
+        tensors, its own ``arch`` and anchors.  The layers do not depend on
+        the canvas; only the anchors and the per-arch constants do."""
+        arch = dataclasses.replace(self.arch, canvas=tuple(canvas_hw))
+        variant = copy.copy(self)  # shares _modules and _parameters
+        variant._buffers = dict(self._buffers)
+        variant.arch = arch
+        variant.anchors = torch.from_numpy(arch.all_anchors()).to(self.device)
+        return variant
 
     # ---- stage pieces ----
 

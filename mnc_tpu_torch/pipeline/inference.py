@@ -1,19 +1,31 @@
-"""Batched inference: canvases → per-instance (box, class, score, mask) — port
-of the canvas-space half of ``mnc_tpu/pipeline/inference.py``.
+"""Inference: BGR images → per-instance (box, class, score, mask) at the
+original resolution — port of ``mnc_tpu/pipeline/inference.py``.
 
-Per-class NMS, mask voting (``lib/nms/mv.pyx``), the cross-class top-K and
-the full-canvas paste-back, batched over images so each kernel launches once
-per batch: per-class NMS runs B × (C−1) problems in one launch of kernel B,
-and the paste runs every detection of the batch in one launch of kernel C.
-The host API of the JAX package (``detect``/``detect_many`` with ``cv2``
-resizing, canvas buckets, ``host_paste``, bit-packed transfer) is not
-ported yet.
+The canvas-space half: per-class NMS, mask voting (``lib/nms/mv.pyx``), the
+cross-class top-K and the full-canvas paste-back, batched over images so
+each kernel launches once per batch: per-class NMS runs B × (C−1) problems
+in one launch of kernel B, and the paste runs every detection of the batch
+in one launch of kernel C.
+
+The host half (``MNCPipeline.detect`` / ``detect_many``): the canvas each
+image runs on (``TEST.AUTO_PORTRAIT``, ``TEST.CANVAS_BUCKETS``), the resize
+into it (``utils.blob.prep_im_for_blob``, cv2's arithmetic, on the model's
+device: only the uint8 original is uploaded), and the way back to the
+original resolution: boxes divided by the scale, the canvas masks cropped
+and resized (``_resize_mask_to``, on the device) or, with
+``TEST.HOST_PASTE``, the soft masks unmolded per detection on the host.
+``TEST.PACKED_TRANSFER`` bit-packs the masks on the device before they
+cross (8× fewer bytes; the same outputs).  Where the JAX package transfers
+the packed canvases and resizes on the host with ``cv2``, the port resizes
+on the device and transfers the packed original-resolution masks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
+import numpy as np
 import torch
 
 from mnc_tpu_torch.config import cfg
@@ -21,6 +33,7 @@ from mnc_tpu_torch.models.mnc import MNC, MNCArch, _take
 from mnc_tpu_torch.ops.mask_voting import box_voting_per_det, mask_voting_per_det
 from mnc_tpu_torch.ops.masks import paste_masks
 from mnc_tpu_torch.ops.nms import nms_indices
+from mnc_tpu_torch.utils.blob import prep_im_for_blob, resize_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,39 +163,314 @@ def vote_candidates(net_out: dict, post: PostCfg, n_stages: int, axis: int = 0):
 
 
 class MNCPipeline:
-    """Canvas-space serving front-end: the network and the post-processing
-    as one call on the model's device.
+    """The serving front-end: the network and the post-processing on the
+    model's device, and the host API around them.
 
         model = MNC(MNCArch.from_cfg())          # cuda; device="cpu" to ask
         model.load_state_dict(state_dict_from_jax(params))
         pipe = MNCPipeline(model)
-        dets = pipe.detect_canvas_batch(canvases, im_infos)
+        dets = pipe.detect(bgr_image)            # original-resolution numpy dict
+        dets = pipe.detect_many(bgr_images, batch_size=8)
 
-    Canvases are (B, H, W, 3) uint8 (mean-subtracted on the device) or
-    mean-subtracted float, at the model's canvas size; im_infos (B, 3) =
-    (scaled h, scaled w, scale).  Numpy inputs are moved to the device.
+    ``detect_canvas[_batch]`` take canvases that are already sized: (B, H,
+    W, 3) uint8 (mean-subtracted on the device) or mean-subtracted float, at
+    the model's canvas size, with im_infos (B, 3) = (scaled h, scaled w,
+    scale); numpy inputs are moved to the device.  Other canvases (portrait,
+    buckets) run on :meth:`MNC.for_canvas` views of the same parameters.
     """
 
     def __init__(self, model: MNC, post: PostCfg | None = None):
         self.model = model
         self.arch: MNCArch = model.arch
         self.post = post or PostCfg.from_cfg()
+        self._variants = {tuple(model.arch.canvas): model}
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
+    def _variant(self, canvas_hw: tuple[int, int]) -> MNC:
+        """The model for a canvas: this one, or a view of its parameters."""
+        canvas_hw = tuple(canvas_hw)
+        if canvas_hw not in self._variants:
+            self._variants[canvas_hw] = self.model.for_canvas(canvas_hw)
+        return self._variants[canvas_hw]
+
     @torch.inference_mode()
-    def detect_canvas_batch(self, canvases, im_infos) -> dict:
-        """Batched throughput path: (B, H, W, 3) + (B, 3) → batched dets."""
+    def _run_batch(self, model: MNC, canvases, im_infos, paste: bool = True,
+                   packed: bool = False) -> dict:
+        """Cascade + post-processing of a batch on ``model``'s canvas; the
+        canvas masks bit-packed along W with ``packed``, left out without
+        ``paste``."""
         canvases = torch.as_tensor(canvases, device=self.device)
         im_infos = torch.as_tensor(im_infos, dtype=torch.float32, device=self.device)
-        net_out = self.model.apply_batch(canvases, im_infos)
-        r, v, c, m = vote_candidates(net_out, self.post, self.arch.n_stages, axis=1)
-        return postprocess_detections(r, v, c, m, self.post, self.arch.canvas)
+        net_out = model.apply_batch(canvases, im_infos)
+        post = self.post if paste else dataclasses.replace(self.post, paste=False)
+        r, v, c, m = vote_candidates(net_out, post, model.arch.n_stages, axis=1)
+        out = postprocess_detections(r, v, c, m, post, model.arch.canvas)
+        if packed and "canvas_masks" in out:
+            out["canvas_masks"] = pack_bits(out["canvas_masks"])
+        return out
+
+    def detect_canvas_batch(self, canvases, im_infos) -> dict:
+        """Batched throughput path: (B, H, W, 3) + (B, 3) → batched dets."""
+        return self._run_batch(self.model, canvases, im_infos)
 
     def detect_canvas(self, canvas, im_info) -> dict:
         """One (H, W, 3) canvas + (3,) im_info → dets without the batch dim."""
         out = self.detect_canvas_batch(torch.as_tensor(canvas)[None],
                                        torch.as_tensor(im_info)[None])
         return {k: v[0] for k, v in out.items()}
+
+    def detect_canvas_batch_packed(self, canvases, im_infos) -> dict:
+        """:meth:`detect_canvas_batch` with the (B, K, H, W) canvas masks
+        bit-packed on the device to (B, K, H, W/8) uint8 (8× less to
+        transfer); :func:`unpack_canvas_masks` undoes it on the host."""
+        return self._run_batch(self.model, canvases, im_infos, packed=True)
+
+    def detect_canvas_packed(self, canvas, im_info) -> dict:
+        """:meth:`detect_canvas` with bit-packed canvas masks."""
+        out = self.detect_canvas_batch_packed(torch.as_tensor(canvas)[None],
+                                              torch.as_tensor(im_info)[None])
+        return {k: v[0] for k, v in out.items()}
+
+    def _pick_canvas(self, h0: int, w0: int, auto_orient: bool) -> tuple[int, int]:
+        """Smallest canvas that admits the full reference scale for this
+        image: the primary canvas, its transpose (``auto_orient``), and any
+        ``TEST.CANVAS_BUCKETS`` entry (orientation-matched)."""
+        canvas = tuple(self.arch.canvas)
+        if auto_orient and (h0 > w0) != (canvas[0] > canvas[1]):
+            canvas = (canvas[1], canvas[0])
+        buckets = [tuple(b) for b in (cfg.TEST.CANVAS_BUCKETS or ())]
+        if not buckets:
+            return canvas
+        stride = self.arch.feat_stride
+        cands = [canvas]
+        for bh, bw in buckets:
+            if bh % stride or bw % stride:
+                raise ValueError(f"CANVAS_BUCKETS entries must be multiples of {stride}")
+            if auto_orient and (h0 > w0) != (bh > bw):
+                bh, bw = bw, bh
+            cands.append((bh, bw))
+        # the raw reference scale (shorter side → SCALES[0], longer capped)
+        short, long = min(h0, w0), max(h0, w0)
+        scale = float(cfg.TEST.SCALES[0]) / short
+        if round(scale * long) > cfg.TEST.MAX_SIZE:
+            scale = float(cfg.TEST.MAX_SIZE) / long
+        hs, ws = h0 * scale, w0 * scale
+        fitting = [b for b in cands if b[0] >= hs and b[1] >= ws]
+        return min(fitting, key=lambda b: b[0] * b[1]) if fitting else canvas
+
+    def _modes(self, auto_orient, packed, host_paste) -> tuple[bool, bool, bool]:
+        """The host API's switches, from cfg.TEST where not given.
+        ``host_paste`` wins over ``packed``: nothing is pasted to pack."""
+        if auto_orient is None:
+            auto_orient = bool(cfg.TEST.AUTO_PORTRAIT)
+        if host_paste is None:
+            host_paste = bool(cfg.TEST.HOST_PASTE)
+        if packed is None:
+            packed = bool(cfg.TEST.PACKED_TRANSFER) and self.post.paste
+        return bool(auto_orient), bool(packed) and not host_paste, bool(host_paste)
+
+    def detect(self, bgr_image, auto_orient: bool | None = None,
+               packed: bool | None = None, host_paste: bool | None = None) -> dict:
+        """Full host API: a BGR uint8 image (H0, W0, 3) → numpy dict at the
+        original resolution: boxes (K, 4), scores (K,), classes (K,), valid
+        (K,), soft masks (K, M, M) in box frames, and full_masks (K, H0, W0)
+        uint8 when pasting is on.
+
+        ``auto_orient`` (default ``TEST.AUTO_PORTRAIT``): portrait images run
+        on the transposed canvas, at the full reference scale.  ``packed``
+        (default ``TEST.PACKED_TRANSFER``): bit-pack the masks on the device,
+        unpack on the host — the same outputs, 8× fewer bytes.
+        ``host_paste`` (default ``TEST.HOST_PASTE``): no canvas paste; the
+        soft masks are unmolded into their boxes on the host per valid
+        detection (the reference's own unmold); boxes, scores and soft
+        masks are those of the pasting route, full_masks differ by the
+        resampling route."""
+        return self.detect_many([bgr_image], batch_size=1, auto_orient=auto_orient,
+                                packed=packed, host_paste=host_paste)[0]
+
+    def detect_many(self, bgr_images, batch_size: int = 8, auto_orient: bool | None = None,
+                    packed: bool | None = None, host_paste: bool | None = None,
+                    max_in_flight: int = 4, timings: dict | None = None) -> list[dict]:
+        """Batched mixed-size host API: BGR images → one :meth:`detect` dict
+        each.
+
+        Images are grouped by their canvas and run through ``apply_batch``
+        in chunks of ``batch_size``; a short last chunk is padded by
+        repeating its last image.  Chunks are dispatched without waiting;
+        at most ``max_in_flight`` chunks' outputs stay on the device before
+        the oldest is fetched, so a long stream holds O(max_in_flight)
+        device memory.  ``timings`` (a dict) accumulates seconds per phase —
+        ``prep`` (canvas picking, upload and resize), ``device`` (cascade,
+        post-processing, mask resize and packing), ``transfer`` (device →
+        host) and ``finalize`` (unpacking, host unmold) — with a device
+        synchronize closing each, which serializes what would overlap.
+        """
+        auto_orient, packed, host_paste = self._modes(auto_orient, packed, host_paste)
+        lap = _Laps(timings, self.device)
+        preps, groups = [], {}
+        u8 = bool(cfg.TEST.U8_TRANSFER)
+        for i, im in enumerate(bgr_images):
+            h0, w0 = im.shape[:2]
+            chw = self._pick_canvas(h0, w0, auto_orient)
+            canvas, info = prep_im_for_blob(im, canvas_hw=chw, u8=u8, device=self.device)
+            preps.append((canvas, info, (h0, w0)))
+            groups.setdefault(chw, []).append(i)
+        lap("prep")
+        results: list = [None] * len(preps)
+
+        def fetch(chunk, dev_out):
+            for k, j in enumerate(chunk):
+                out = self._finalize_host({key: v[k] for key, v in dev_out.items()},
+                                          preps[j][2], preps[j][1], packed, lap)
+                if host_paste:
+                    out["full_masks"] = unmold_masks_host(
+                        out["masks"], out["boxes"], out["valid"], preps[j][2],
+                        self.post.binarize_thresh)
+                    lap("finalize")
+                results[j] = out
+
+        pending: list = []
+        for chw, idxs in groups.items():
+            model = self._variant(chw)
+            for start in range(0, len(idxs), batch_size):
+                chunk = idxs[start:start + batch_size]
+                sel = chunk + [chunk[-1]] * (batch_size - len(chunk))
+                images = torch.stack([preps[j][0] for j in sel])
+                infos = np.stack([preps[j][1] for j in sel])
+                pending.append((chunk, self._run_batch(model, images, infos,
+                                                       paste=not host_paste)))
+                lap("device")
+                if len(pending) >= max(1, max_in_flight):
+                    fetch(*pending.pop(0))
+        for item in pending:
+            fetch(*item)
+        return results
+
+    @torch.inference_mode()
+    def _finalize_host(self, dets: dict, orig_hw: tuple[int, int], im_info, packed: bool,
+                       lap: "_Laps") -> dict:
+        """One image's canvas-space outputs (on the device) → the host dict
+        at the original resolution.  The canvas masks are cropped to the
+        scaled image and resized to the original size where they lie, then
+        (``packed``) bit-packed; only that result crosses to the host."""
+        scale = float(im_info[2])
+        full = None
+        if "canvas_masks" in dets:
+            sh, sw = int(im_info[0]), int(im_info[1])
+            full = _resize_mask_to(dets["canvas_masks"][:, :sh, :sw], orig_hw)
+            if packed:
+                full = pack_bits(full)
+        lap("device")
+        host = {k: v.cpu().numpy() for k, v in dets.items() if k != "canvas_masks"}
+        if full is not None:
+            full = full.cpu().numpy()
+        lap("transfer")
+        out = {"boxes": host["boxes"] / scale, "scores": host["scores"],
+               "classes": host["classes"], "masks": host["masks"], "valid": host["valid"]}
+        if full is not None:
+            out["full_masks"] = (np.unpackbits(full, axis=-1, count=orig_hw[1]) if packed
+                                 else full)
+        lap("finalize")
+        return out
+
+    def prewarm(self, batch_size: int | None = None, auto_orient: bool | None = None,
+                packed: bool | None = None, host_paste: bool | None = None
+                ) -> list[tuple[int, int]]:
+        """Run one dummy image through every canvas :meth:`detect` /
+        :meth:`detect_many` can pick — the primary canvas, each
+        ``TEST.CANVAS_BUCKETS`` entry, and their transposes with
+        ``auto_orient`` — and, with ``batch_size``, one batch of that size
+        each, so the kernels are built and the allocator holds its pools
+        before the first request.  Returns the canvases, in order."""
+        auto_orient, packed, host_paste = self._modes(auto_orient, packed, host_paste)
+        cands = [tuple(self.arch.canvas)]
+        cands += [tuple(b) for b in (cfg.TEST.CANVAS_BUCKETS or ())]
+        if auto_orient:
+            cands += [(w, h) for h, w in cands]
+        canvases = list(dict.fromkeys(cands))
+        u8 = bool(cfg.TEST.U8_TRANSFER)
+        for chw in canvases:
+            canvas, info = prep_im_for_blob(np.zeros((*chw, 3), np.uint8), canvas_hw=chw,
+                                            u8=u8, device=self.device)
+            for b in sorted({1, batch_size or 1}):
+                out = self._run_batch(self._variant(chw), canvas.expand(b, *canvas.shape),
+                                      np.stack([info] * b), paste=not host_paste,
+                                      packed=packed)
+                out["valid"].cpu()  # wait for it
+        return canvases
+
+
+class _Laps:
+    """Seconds per phase, each closed by a device synchronize; a no-op
+    without a dict to fill."""
+
+    def __init__(self, timings: dict | None, device):
+        self.timings, self.device = timings, device
+        self.t = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[phase] = self.timings.get(phase, 0.0) + now - self.t
+        self.t = now
+
+
+def pack_bits(masks: torch.Tensor) -> torch.Tensor:
+    """``np.packbits(masks, axis=-1)`` on the masks' device: 8 pixels per
+    byte, the first in the high bit, W padded with zeros to a multiple of 8."""
+    m = torch.nn.functional.pad(masks.to(torch.uint8), (0, (-masks.shape[-1]) % 8))
+    m = m.reshape(*m.shape[:-1], -1, 8).to(torch.int32)
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=m.device)
+    return (m << shifts).sum(-1).to(torch.uint8)
+
+
+def unpack_canvas_masks(dets: dict, canvas_w: int) -> dict:
+    """Host-side inverse of the packed detect paths: canvas_masks (…, W/8)
+    uint8 → (…, W) bool (numpy)."""
+    if "canvas_masks" in dets and dets["canvas_masks"].shape[-1] != canvas_w:
+        dets = dict(dets, canvas_masks=np.unpackbits(
+            np.asarray(dets["canvas_masks"]), axis=-1, count=canvas_w).astype(bool))
+    return dets
+
+
+def _resize_mask_to(masks: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """Binary masks (…, h, w) → uint8 (…, H, W): cv2's bilinear resize of
+    the 0/1 values, thresholded at > 0.5 (ties at 0.5 stay 0; cv2's exact
+    arithmetic decides which pixels tie)."""
+    lead = masks.shape[:-2]
+    x = masks.reshape(-1, *masks.shape[-2:], 1).float()
+    out = resize_linear(x, out_hw=tuple(hw)) > 0.5
+    return out.reshape(*lead, *hw).to(torch.uint8)
+
+
+def _resize_soft(m, hw: tuple[int, int]) -> np.ndarray:
+    """One soft (M, M) mask → (h, w) float32 by cv2's bilinear resize."""
+    return resize_linear(torch.as_tensor(np.asarray(m, np.float32)), out_hw=hw).numpy()
+
+
+def unmold_masks_host(masks: np.ndarray, boxes: np.ndarray, valid: np.ndarray,
+                      hw: tuple[int, int], binarize_thresh: float = 0.4) -> np.ndarray:
+    """Host-side unmold (the reference tester's): per valid detection,
+    resize its (M, M) soft mask into its rounded box and threshold, in a
+    full (H, W) canvas.  boxes are at the target resolution; invalid rows
+    stay zero.  Returns (K, H, W) uint8."""
+    h, w = hw
+    out = np.zeros((len(masks), h, w), np.uint8)
+    for k in range(len(masks)):
+        if not valid[k]:
+            continue
+        x1, y1, x2, y2 = boxes[k]
+        xi1, yi1 = max(int(np.round(x1)), 0), max(int(np.round(y1)), 0)
+        xi2 = min(int(np.round(x2)) + 1, w)
+        yi2 = min(int(np.round(y2)) + 1, h)
+        if xi2 <= xi1 or yi2 <= yi1:
+            continue
+        m = _resize_soft(masks[k], (yi2 - yi1, xi2 - xi1))
+        out[k, yi1:yi2, xi1:xi2] = (m > binarize_thresh).astype(np.uint8)
+    return out

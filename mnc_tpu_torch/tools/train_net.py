@@ -7,8 +7,9 @@
 
 Builds the architecture with ``MNCArch.from_cfg(train=True)`` and the
 synthetic overrides (the imdb's canvas and classes, small anchors), the
-solver from ``cfg.TRAIN.*``, prints one metrics line every ``--print-every``
-steps and saves the train state as ``<out>/state_<iters>.npz`` at the end.
+solver from ``cfg.TRAIN.*``, writes every step's metrics to
+``<out>/train_metrics.jsonl`` and prints them every ``--print-every`` steps
+(``utils.metrics.MetricsLogger``), and saves the train state as ``<out>/state_<iters>.npz`` at the end.
 It runs on the GPU unless ``--device cpu`` is given, and raises without one.
 Real-data imdbs, ``TrainLoader`` (flipping, scaling) and orbax snapshots are
 not ported.
@@ -47,6 +48,7 @@ def main(argv=None) -> int:
     from mnc_tpu_torch.train.optim import make_optimizer
     from mnc_tpu_torch.utils.checkpoint import save_train_state
     from mnc_tpu_torch.utils.device import resolve_device
+    from mnc_tpu_torch.utils.metrics import MetricsLogger
 
     device = resolve_device(args.device)  # raises without a GPU unless --device cpu
     if args.cfg:
@@ -78,15 +80,15 @@ def main(argv=None) -> int:
     order = torch.Generator().manual_seed(seed)
     print(f"training on {device} ({arch.n_stages}-stage, canvas {arch.canvas}, "
           f"{ims} image(s) per step, {max_iters} iters)", flush=True)
+    logger = MetricsLogger(os.path.join(out_dir, "train_metrics.jsonl"), args.print_every)
     t0 = time.perf_counter()
     for it in range(max_iters):
         idx = torch.randint(0, n_images, (ims,), generator=order).tolist()
         batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(idx).items()}
         lr = opt.lr
         state, metrics = step_fn(state, batch, gen)
-        if (it + 1) % args.print_every == 0 or it == 0:
-            parts = ", ".join(f"{k} = {float(v):.4f}" for k, v in metrics.items())
-            print(f"Iteration {it + 1}, lr = {lr:.6g}: {parts}", flush=True)
+        logger.log(it + 1, {k: float(v) for k, v in metrics.items()}, lr=lr)
+    logger.close()
     if device.type == "cuda":
         torch.cuda.synchronize()
     os.makedirs(out_dir, exist_ok=True)

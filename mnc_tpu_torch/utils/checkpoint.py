@@ -17,9 +17,18 @@ JAX package: ``load_npz`` reads the flat npz that
 package's ``load_npz`` reads them back; the step and the solver state ride
 along under ``__meta__/`` and ``__opt__/`` names.  Orbax directories are not
 ported.
+
+On JAX-layout trees (numpy leaves) it also carries the rest of that
+package's npz checkpoint: ``save_npz`` / ``npz_meta`` / ``arch_for_npz``,
+the reference snapshot's bbox fold (``export_params``) and its inverse
+(``renormalize_bbox_pred``), and ``load_import_weights``, the shared
+``--caffemodel`` / ``--npz`` handling of the entry points.
 """
 
 from __future__ import annotations
+
+import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -135,3 +144,128 @@ def load_train_state(path: str, state) -> None:
                {"params": opt_tree["acc"]}).items()} if "acc" in opt_tree else None)}
     state.opt.load_state_dict(opt)
     state.step = int(meta["step"])
+
+
+# --------------------------------------------------------------------------- #
+# npz export and import on JAX-layout trees (≙ mnc_tpu/utils/checkpoint.py)
+# --------------------------------------------------------------------------- #
+
+
+def _bbox_stats(tree: dict, bbox_means, bbox_stds):
+    bb = tree["params"]["classify_head"]["bbox_pred"]
+    k, b = np.asarray(bb["kernel"]), np.asarray(bb["bias"])
+    reps = k.shape[-1] // 4
+    return (bb, k, b, np.tile(np.asarray(bbox_means, np.float32), reps),
+            np.tile(np.asarray(bbox_stds, np.float32), reps))
+
+
+def export_params(params: dict, bbox_means, bbox_stds) -> dict:
+    """Fold the bbox-target normalization into ``bbox_pred`` (a copy):
+    kernel' = kernel·stds, bias' = bias·stds + means per output, so the
+    classify head emits UN-normalized deltas, as a reference ``.caffemodel``
+    snapshot does (run it with ``bbox_pred_normalized=False``)."""
+    params = copy.deepcopy(params)
+    bb, k, b, means, stds = _bbox_stats(params, bbox_means, bbox_stds)
+    bb["kernel"] = k * stds[None, :]
+    bb["bias"] = b * stds + means
+    return params
+
+
+def renormalize_bbox_pred(params: dict, bbox_means, bbox_stds) -> dict:
+    """Inverse of :func:`export_params` (a copy): kernel' = kernel / stds,
+    bias' = (bias − means) / stds — what fine-tuning from a reference
+    snapshot needs, since training regresses normalized deltas."""
+    params = copy.deepcopy(params)
+    bb, k, b, means, stds = _bbox_stats(params, bbox_means, bbox_stds)
+    bb["kernel"] = k / stds[None, :]
+    bb["bias"] = (b - means) / stds
+    return params
+
+
+def save_npz(path: str, params: dict, meta: dict | None = None) -> None:
+    """Flat-name npz export (``trunk/conv1_1/kernel`` ...), ``meta`` under
+    ``__meta__/<key>`` — e.g. ``bbox_pred_normalized``: True while the stats
+    are still out of the regressor, False once :func:`export_params` folded
+    them in."""
+    flat: dict = {}
+    for k, v in params.items():
+        _flatten(k, v, flat)
+    flat = {k: np.asarray(v) for k, v in flat.items()}
+    for k, v in (meta or {}).items():
+        flat[f"__meta__/{k}"] = np.asarray(v)
+    np.savez(path, **flat)
+
+
+def npz_meta(path: str) -> dict:
+    """The ``__meta__/*`` entries of an npz export ({} for older files)."""
+    return load_npz(path)[1]
+
+
+def arch_for_npz(path: str, arch):
+    """``arch`` with ``bbox_pred_normalized`` set from the npz's metadata
+    (files without it are taken as normalized, the training convention)."""
+    normalized = bool(npz_meta(path).get("bbox_pred_normalized", True))
+    if normalized == arch.bbox_pred_normalized:
+        return arch
+    return dataclasses.replace(arch, bbox_pred_normalized=normalized)
+
+
+def parse_remap(pairs) -> dict:
+    """['old=new', ...] (the --remap CLI form) → {old: new}."""
+    out = {}
+    for p in pairs or []:
+        if "=" not in p:
+            raise ValueError(f"--remap entries are old=new, got {p!r}")
+        old, new = p.split("=", 1)
+        out[old] = new
+    return out
+
+
+def load_import_weights(caffemodel_path, npz_path, arch, params, remap=None,
+                        make_params=None):
+    """Shared --caffemodel / --npz handling of the entry points → (params,
+    arch), params a JAX-layout tree.
+
+    A caffemodel flips ``bbox_pred_normalized`` (snapshot weights predict
+    raw deltas) and ``suppress_untrainable_anchors`` (the reference scored
+    every anchor) off, and auto-configures the fields its blob shapes
+    determine (mask size, classes, fc widths, warp size:
+    ``infer_arch_overrides``); ``make_params(arch) -> params`` re-initializes
+    the tree when that changes head shapes, and without it such an import
+    raises.  An npz carries the normalization state in its metadata; the
+    solver state of a ``save_train_state`` file is left out.  ``remap``
+    ({source_layer: canonical_layer} or ['old=new', ...]) renames caffemodel
+    layers before matching.  Rebuild the model iff the arch changed."""
+    if caffemodel_path:
+        from mnc_tpu_torch.utils.caffemodel import (infer_arch_overrides,
+                                                    load_mnc_caffemodel,
+                                                    read_caffemodel)
+
+        if isinstance(remap, (list, tuple)):
+            remap = parse_remap(remap)
+        blobs = read_caffemodel(caffemodel_path)
+        named = {remap.get(k, k): v for k, v in blobs.items()} if remap else blobs
+        changes = {k: v for k, v in infer_arch_overrides(named).items()
+                   if getattr(arch, k) != v}
+        if changes:
+            print(f"caffemodel auto-config: {changes} "
+                  f"(was {({k: getattr(arch, k) for k in changes})})")
+            arch = dataclasses.replace(arch, **changes)
+            if make_params is None:
+                raise ValueError(
+                    f"caffemodel {caffemodel_path} needs arch overrides {changes} but no "
+                    "make_params re-init hook was given")
+            params = make_params(arch)
+        params = load_mnc_caffemodel(caffemodel_path, params, remap=remap, blobs=blobs)
+        arch = dataclasses.replace(arch, bbox_pred_normalized=False,
+                                   suppress_untrainable_anchors=False)
+        print(f"loaded reference weights from {caffemodel_path} "
+              "(stage-bridge de-norm off; anchor-type suppression off)")
+    elif npz_path:
+        tree, _ = load_npz(npz_path)
+        params = {k: v for k, v in tree.items() if k != "__opt__"}
+        new_arch = arch_for_npz(npz_path, arch)
+        if new_arch is not arch:
+            print("npz has bbox stats folded in; stage bridge de-norm off")
+        arch = new_arch
+    return params, arch

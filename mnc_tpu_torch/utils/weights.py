@@ -1,16 +1,32 @@
-"""Pretrained ResNet weights from a torchvision state dict — port of
-``fold_bn`` and ``load_resnet_torchvision`` from ``mnc_tpu/utils/weights.py``.
+"""Pretrained-weight converters — port of ``mnc_tpu/utils/weights.py``.
 
-BatchNorm's running statistics fold into the FrozenBN affine (scale =
-γ/√(σ²+ε), bias = β − μ·scale).  torchvision's ``layer1..3`` become the
-trunk's ``stage2..4``; ``layer4`` becomes the per-RoI conv5 head
-(``classify_head.stage5_block*``) when the model has one.  torchvision's
-convolutions are OIHW like the port's, so they are copied as they are; only
-the stem is adapted to the MNC input convention.  Nothing is downloaded:
-the state dict is given, or read from a local file.
+Three sources, nothing downloaded (the weights are given, or read from a
+local file):
+
+- a **caffe-export npz** of VGG-16 (``{name}_w`` (O, I, kH, kW), ``{name}_b``),
+  BGR channel order, mean-pixel input: the trunk keeps those conventions,
+  so conversion is a pure transpose (``load_vgg16_caffe_npz``);
+- a **torchvision VGG-16 state dict**: RGB input scaled by 1/255 and
+  normalized by ImageNet's mean and std, so conv1_1 is channel-swapped and
+  rescaled to take the reference's BGR mean-subtracted input
+  (``load_vgg16_torchvision``);
+- a **torchvision ResNet-50/101/152 state dict** (``load_resnet_torchvision``):
+  BatchNorm's running statistics fold into the FrozenBN affine (scale =
+  γ/√(σ²+ε), bias = β − μ·scale).  torchvision's ``layer1..3`` become the
+  trunk's ``stage2..4``; ``layer4`` becomes the per-RoI conv5 head
+  (``classify_head.stage5_block*``) when the model has one.
+
+The VGG loaders work on param trees in the JAX package's layout (conv HWIO,
+as ``utils.caffemodel`` and ``utils.checkpoint.load_npz`` give them;
+``utils.checkpoint.state_dict_from_jax`` carries a tree into the port), so
+they return what the JAX package's loaders return.  The ResNet loader works
+on a port ``state_dict``: torchvision's convolutions are OIHW like the
+port's, so they are copied as they are; only the stem is adapted.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -21,6 +37,73 @@ from mnc_tpu_torch.models.resnet import _DEPTHS
 # ImageNet RGB normalization that torchvision's models expect
 _TV_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 _TV_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+_VGG_CAFFE_NAMES = [
+    "conv1_1", "conv1_2", "conv2_1", "conv2_2",
+    "conv3_1", "conv3_2", "conv3_3",
+    "conv4_1", "conv4_2", "conv4_3",
+    "conv5_1", "conv5_2", "conv5_3",
+]
+
+# torchvision vgg16.features indices of the conv layers, in order
+_TV_FEATURE_IDX = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+
+
+def caffe_conv_to_flax(kernel_oihw: np.ndarray) -> np.ndarray:
+    """Caffe (O, I, kH, kW) → the JAX layout (kH, kW, I, O)."""
+    return np.transpose(kernel_oihw, (2, 3, 1, 0))
+
+
+def load_vgg16_caffe_npz(path: str, params: dict) -> dict:
+    """Merge a caffe-export npz ({name}_w / {name}_b arrays) into a copy of
+    ``params`` (a JAX-layout tree with a top ``"params"`` level)."""
+    params = copy.deepcopy(params)
+    with np.load(path) as data:
+        for name in _VGG_CAFFE_NAMES:
+            w = caffe_conv_to_flax(data[f"{name}_w"]).astype(np.float32)
+            b = data[f"{name}_b"].astype(np.float32)
+            dst = params["params"]["trunk"][name]
+            if dst["kernel"].shape != w.shape:
+                raise ValueError(f"{name}: model {dst['kernel'].shape}, weights {w.shape}")
+            dst["kernel"], dst["bias"] = w, b
+    return params
+
+
+def load_vgg16_torchvision(params: dict, state_dict: dict | None = None,
+                           weights_path: str | None = None) -> dict:
+    """Merge torchvision VGG-16 conv weights into a copy of ``params`` (a
+    JAX-layout tree; trunk only).  ``weights_path`` names a local
+    ``torch.save`` file, read when ``state_dict`` is not given.
+
+    conv1_1 is adapted to the MNC input convention: torchvision expects RGB
+    x/255 normalized by ImageNet's mean m and std s, MNC feeds BGR with the
+    pixel means subtracted.  For y = W·x_n + b with x_n = (x_rgb/255 − m)/s
+    and x = x_bgr − pixel_means:
+        W' = W[:, ::-1] / (255·s),  b' = b + Σ_{i,kh,kw} W·(pm_rgb/255 − m)/s.
+    Exact on the interior; at the zero-padded 1-pixel border the two
+    conventions pad with different effective constants.
+    """
+    if state_dict is None:
+        if not weights_path:
+            raise ValueError("state_dict or weights_path is required")
+        state_dict = torch.load(weights_path, map_location="cpu", weights_only=True)
+    sd = _np(state_dict)
+    params = copy.deepcopy(params)
+    pm_rgb = np.asarray(cfg.PIXEL_MEANS, np.float32).reshape(3)[::-1]
+    for name, idx in zip(_VGG_CAFFE_NAMES, _TV_FEATURE_IDX):
+        w = sd[f"features.{idx}.weight"]  # (O, I, kH, kW), RGB for conv1_1
+        b = sd[f"features.{idx}.bias"]
+        if name == "conv1_1":
+            delta = (pm_rgb / 255.0 - _TV_MEAN) / _TV_STD  # per input channel
+            b = b + np.einsum("oikl,i->o", w, delta)
+            w = (w / (255.0 * _TV_STD[None, :, None, None]))[:, ::-1]  # RGB → BGR
+        dst = params["params"]["trunk"][name]
+        wf = caffe_conv_to_flax(w)
+        if dst["kernel"].shape != wf.shape:
+            raise ValueError(f"{name}: model {dst['kernel'].shape}, weights {wf.shape}")
+        dst["kernel"], dst["bias"] = wf, b
+    return params
+
 
 _BN_EPS = 1e-5  # torch BatchNorm2d's default; torchvision's ResNets keep it
 

@@ -338,3 +338,25 @@ def test_proposals_and_bridge_break_ties_as_on_the_cpu(gen):
     on_card = stage_bridge(rois, prob, pred, info, arch)
     on_cpu = stage_bridge(rois.cpu(), prob.cpu(), pred.cpu(), info.cpu(), arch)
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("h,w,s", [(333, 500, 600 / 333), (500, 375, 1.6), (1200, 1600, 0.5),
+                                   (1601, 1200, 0.5), (64, 48, 3.3)])
+def test_image_resize_on_the_card_equals_the_cpu(gen, h, w, s):
+    """utils.blob.resize_linear (cv2's arithmetic) is bit-equal on both
+    devices: int32 ops for uint8, float64 for the f32 path's fma."""
+    from mnc_tpu_torch.utils.blob import resize_linear
+
+    im = torch.randint(0, 256, (h, w, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    assert torch.equal(resize_linear(im, scale=s).cpu(), resize_linear(im.cpu(), scale=s))
+    f = im.float() - 120.0
+    assert torch.equal(resize_linear(f, scale=s).cpu(), resize_linear(f.cpu(), scale=s))
+
+
+def test_mask_resize_and_packing_on_the_card_equal_the_cpu(gen):
+    from mnc_tpu_torch.pipeline.inference import _resize_mask_to, pack_bits
+
+    masks = torch.rand(20, 600, 800, generator=gen, device="cuda") > 0.5
+    full = _resize_mask_to(masks, (375, 500))
+    assert torch.equal(full.cpu(), _resize_mask_to(masks.cpu(), (375, 500)))
+    assert torch.equal(pack_bits(full).cpu(), pack_bits(full.cpu()))

@@ -1,4 +1,5 @@
-"""Package rules of the port: it imports neither JAX nor the JAX package, its
+"""Package rules of the port: it imports neither JAX nor the JAX package (nor,
+when its modules are imported, cv2, PIL or h5py, which the GPU machine lacks), its
 entry points default to ``cuda`` and raise without a GPU, its kernel
 wrappers take CUDA tensors only, and its cfg copy keeps every key of the JAX
 package's cfg (so ``experiments/cfgs/*.yml`` load unchanged)."""
@@ -32,12 +33,17 @@ def test_port_imports_no_jax_and_no_mnc_tpu():
             "mnc_tpu_torch.train.optim", "mnc_tpu_torch.train.loop",
             "mnc_tpu_torch.data.synthetic", "mnc_tpu_torch.tools.train_net",
             "mnc_tpu_torch.profile_training", "mnc_tpu_torch.models.resnet",
-            "mnc_tpu_torch.utils.weights"} <= set(mods)
+            "mnc_tpu_torch.utils.weights", "mnc_tpu_torch.utils.caffemodel",
+            "mnc_tpu_torch.utils.blob", "mnc_tpu_torch.data.eval_sds",
+            "mnc_tpu_torch.data.synth_imdb", "mnc_tpu_torch.tools.test_net",
+            "mnc_tpu_torch.tools.demo", "mnc_tpu_torch.tools.fabricate_caffemodel",
+            "mnc_tpu_torch.utils.vis"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'mnc_tpu') "
-        "or m.startswith(('jax.', 'flax.', 'mnc_tpu.')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'mnc_tpu', 'cv2', "
+        "'PIL', 'h5py') or m.startswith(('jax.', 'flax.', 'mnc_tpu.', 'cv2.', 'PIL.', "
+        "'h5py.')))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -85,6 +91,21 @@ def test_train_net_refuses_to_run_without_gpu(tmp_path):
         cfg.cfg.clear()
         cfg.cfg.update(saved)
     assert rc == 0 and (tmp_path / "state_2.npz").exists()
+
+
+@pytest.mark.parametrize("tool", ["test_net", "demo"])
+def test_eval_entry_points_refuse_to_run_without_gpu(tool, tmp_path):
+    """test_net and demo run on the card unless --device cpu is given."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-GPU behaviour cannot be shown")
+    import importlib
+
+    main = importlib.import_module(f"mnc_tpu_torch.tools.{tool}").main
+    argv = ["--synthetic", "--out", str(tmp_path)] if tool == "demo" else ["--imdb",
+                                                                            "synthetic_4"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
