@@ -55,7 +55,21 @@ Phases, each printing its lines before the two JSON lines at the end:
       time (host prep, device, device → host, host finalize); host_paste
       and single ``detect`` against the stream; then a small f32 model's
       detect_many and ``tools/test_net`` on ``synthetic_8`` (one npz), card
-      against CPU.
+      against CPU;
+   g. the serving entry points, on f's imported model before it is freed:
+      each kernel through its custom op (``mnc::*``) against its direct
+      wrapper (identical outputs, host us per call each way); the
+      micro-batched HTTP server (``make_http_server(batch_fn=...)`` over
+      ``detect_many``, max batch 4) answering f's 16 images as ``.npy``
+      bodies from 8 client threads (requests/s, latency, batches formed,
+      every RLE of its image's size); the single-mode server equal to
+      ``dets_to_json(pipe.detect(im))``; the B = 4 ``torch.export``
+      artifact, loaded in a fresh process that imports no model code, on
+      a.'s canvases against ``detect_canvas_batch`` (the subprocess
+      prints its launch counts; artifact size, export / save / load
+      seconds; exported and eager request times over 60 pairs interleaved
+      in one process, median and spread); ``ExportedPipeline.detect``
+      against ``MNCPipeline.detect``.
 5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
    of phase 3, per shape where there are several; bounds from this run's
    inputs), then ``{"ok": true, ...}``.
@@ -1132,6 +1146,333 @@ def stream_path(device_label, model):
     return counts, stats
 
 
+def custom_op_overhead(g):
+    """Each kernel through its custom op (``mnc::*``) against its direct
+    wrapper on the same inputs: outputs identical, then the host time of a
+    call each way (host clock over 200 back-to-back calls at a small shape,
+    ending in a synchronize; op, direct, direct, op).  Returns {name: us per
+    call through the op, directly, and the difference}."""
+    from mnc_tpu_torch import kernels
+    from mnc_tpu_torch.ops.block1 import block1_op, packed_block1_weights
+    from mnc_tpu_torch.ops.masks import paste_binarize_op
+    from mnc_tpu_torch.ops.nms import nms_keep_op
+    from mnc_tpu_torch.ops.roi_warp import roi_warp_op
+
+    feat = torch.randn(1, 8, 8, 8, generator=g, device="cuda")
+    rois = random_boxes(g, 4, 128, 128, hi=64.0)[None].contiguous()
+    boxes = random_boxes(g, 64, 128, 128, hi=64.0)[None].contiguous()
+    valid = torch.ones(1, 64, dtype=torch.bool, device="cuda")
+    wy = torch.rand(2, 16, 5, generator=g, device="cuda")
+    masks = torch.rand(2, 5, 5, generator=g, device="cuda")
+    wxt = torch.rand(2, 5, 16, generator=g, device="cuda")
+    x = (torch.randn(1, 8, 16, 3, generator=g, device="cuda") * 50).to(torch.bfloat16)
+    ws = (torch.randn(64, 3, 3, 3, generator=g, device="cuda") * 0.1,
+          torch.randn(64, generator=g, device="cuda"),
+          torch.randn(64, 64, 3, 3, generator=g, device="cuda") * 0.05,
+          torch.randn(64, generator=g, device="cuda"))
+    pairs = {
+        "roi_warp": (lambda: roi_warp_op(feat, rois, 2, 2, 0.25),
+                     lambda: kernels.roi_warp_cuda(feat, rois, (2, 2), 0.25)),
+        "nms": (lambda: nms_keep_op(boxes, valid, 0.5, 0),
+                lambda: kernels.nms_keep_cuda(boxes, valid, 0.5, 0)),
+        "paste_binarize": (lambda: paste_binarize_op(wy, masks, wxt, 0.4),
+                           lambda: kernels.paste_binarize_cuda(wy, masks, wxt, 0.4)),
+        "block1": (lambda: block1_op(x, *ws),
+                   lambda: kernels.block1_cuda(x, *packed_block1_weights(*ws))),
+    }
+
+    def host_us(fn, n=200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out = {}
+    for name, (op, direct) in pairs.items():
+        if not torch.equal(op(), direct()):
+            raise AssertionError(f"custom op mnc::{name} differs from its direct wrapper")
+        for _ in range(20):  # warm-up
+            op(), direct()
+        t = [host_us(f) for f in (op, direct, direct, op)]
+        op_us, direct_us = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        out[name] = dict(op_us=op_us, direct_us=direct_us, overhead_us=op_us - direct_us)
+    log("custom ops on the card: outputs identical to the direct wrappers; host us per call "
+        "(op / direct / overhead, mean of two runs of 200 each way): "
+        + "; ".join(f"{k} {v['op_us']:.1f} / {v['direct_us']:.1f} / {v['overhead_us']:.1f}"
+                    for k, v in out.items()))
+    return out
+
+
+def _post(port, body, timeout=120):
+    """POST ``body`` to /detect → (status, parsed JSON, seconds)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/detect", body=body,
+                     headers={"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    return resp.status, json.loads(data), time.perf_counter() - t0
+
+
+def _npy(im) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, im)
+    return buf.getvalue()
+
+
+def _serve_in_thread(srv):
+    import threading
+
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return t
+
+
+def _stop(srv, thread):
+    srv.shutdown()
+    srv.server_close()
+    if srv.batcher is not None:
+        srv.batcher.close()
+    thread.join(timeout=10)
+    if thread.is_alive():
+        raise AssertionError("the HTTP server thread did not stop")
+
+
+N_TIMED = 60  # exported/eager request pairs timed in phase 4g
+
+
+def _subprocess_artifact(path, inputs, outputs):
+    """Load the artifact at ``path`` in a fresh interpreter that must import
+    no model code, run it on the canvases saved at ``inputs`` (one warm-up
+    call, then one counted call), save the counted call's outputs to
+    ``outputs``; returns the JSON line it prints (load seconds, launch
+    counts of the counted call)."""
+    code = (
+        "import json, sys, time, torch\n"
+        "t0 = time.perf_counter()\n"
+        "from mnc_tpu_torch.pipeline.export import load_exported\n"
+        "from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts\n"
+        "fn = load_exported(sys.argv[1])\n"
+        "load_s = time.perf_counter() - t0\n"
+        "models = sorted(m for m in sys.modules if m.startswith('mnc_tpu_torch.models'))\n"
+        "if models:\n"
+        "    raise SystemExit(f'the artifact loader imported model code: {models}')\n"
+        "inp = torch.load(sys.argv[2])\n"
+        "c, i = inp['canvases'].cuda(), inp['im_infos'].cuda()\n"
+        "fn(c, i)\n"
+        "torch.cuda.synchronize()\n"
+        "reset_launch_counts()\n"
+        "out = fn(c, i)\n"
+        "torch.cuda.synchronize()\n"
+        "counts = launch_counts()\n"
+        "torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[3])\n"
+        "print(json.dumps({'load_s': load_s, 'launches': counts}))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code, path, inputs, outputs], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"the artifact's subprocess failed:\n{res.stdout}\n{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def serving_entry_points(device_label, model, tmp):
+    """Phase 4g, on the imported full-size model of phase 4f (M = 28, the
+    default TEST config):
+
+    (i)   the server of ``serve --http 0 --http-batch 4`` (``make_http_server``
+          with a ``MicroBatcher`` over ``detect_many``) in a thread; 8 client
+          threads POST phase 4f's 16 images as ``.npy`` bodies: every reply
+          200, every RLE of the original size, the batches formed summing to
+          16; requests/s and latency printed;
+    (ii)  the single-mode server (``serve --http 0``): its replies for 2 images
+          equal ``dets_to_json(pipe.detect(im))`` exactly;
+    (iii) the batched (B = 4) artifact of ``export_inference``, loaded in a
+          fresh subprocess that imports no model code, on phase 4a's
+          canvases: valid, classes and canvas masks identical to
+          ``detect_canvas_batch``, boxes within 1e-3 px, scores within 1e-6,
+          soft masks within 1e-5 (the same aten ops and kernels run, so
+          bit-equal is expected); exported and eager request times over
+          ``N_TIMED`` pairs interleaved in this process;
+    (iv)  ``ExportedPipeline.detect`` of the single-image artifact on one
+          image equals ``MNCPipeline.detect`` (every key, exactly).
+
+    Scores of the fabricated weights (~1/21) lie below ``serve``'s default
+    ``--conf`` 0.7, so the replies keep every valid instance (conf 0).
+    Returns the launch counts by path."""
+    import threading
+
+    from mnc_tpu_torch import native
+    from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mnc_tpu_torch.pipeline.export import (ExportedPipeline, export_inference,
+                                               load_exported, save_exported)
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline
+    from mnc_tpu_torch.tools.serve import build_server, dets_to_json, parse_args
+
+    conf = 0.0
+    rs = np.random.RandomState(0)  # phase 4f's stream
+    images = [rs.randint(0, 256, (*STREAM_SIZES[i % 6], 3)).astype(np.uint8)
+              for i in range(16)]
+    bodies = [_npy(im) for im in images]
+    pipe = MNCPipeline(model)
+    pipe.prewarm(batch_size=4)
+    by_path = {}
+
+    # (i) micro-batched, as `serve --http 0 --http-batch 4 --conf 0` builds it
+    srv = build_server(parse_args(["--http", "0", "--http-batch", "4", "--conf", str(conf)]),
+                       pipe, host="127.0.0.1")
+    port = srv.server_address[1]
+    thread = _serve_in_thread(srv)
+    try:
+        status, _, _ = _post(port, bodies[0])  # warm-up of the server path
+        if status != 200:
+            raise AssertionError(f"micro-batched server: warm-up reply {status}")
+        srv.batcher.batch_sizes.clear()
+        replies = [None] * 16
+        torch.cuda.synchronize()
+        reset_launch_counts()
+
+        def client(c):
+            for j in range(c, 16, 8):
+                replies[j] = _post(port, bodies[j])
+
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        by_path["serve_http"] = launch_counts()
+        sizes = list(srv.batcher.batch_sizes)
+    finally:
+        _stop(srv, thread)
+    if any(t.is_alive() for t in clients) or any(r is None for r in replies):
+        raise AssertionError("micro-batched server: a client did not finish")
+    n_inst = []
+    for im, (status, obj, _) in zip(images, replies):
+        if status != 200:
+            raise AssertionError(f"micro-batched server: reply {status}: {obj}")
+        for inst in obj["instances"]:
+            m = native.rle_decode(inst["mask_rle"])
+            if tuple(inst["mask_rle"]["size"]) != im.shape[:2] or m.shape != im.shape[:2]:
+                raise AssertionError("micro-batched server: an RLE is not of its image's size")
+        n_inst.append(len(obj["instances"]))
+    if sum(sizes) != 16 or not all(n > 0 for n in n_inst):
+        raise AssertionError(f"micro-batched server: batches {sizes}, instances {n_inst}")
+    lat = sorted(r[2] * 1e3 for r in replies)
+    log(f"serve_http micro-batched on {device_label}: 16 .npy requests from 8 clients in "
+        f"{wall * 1e3:.1f} ms: {16 / wall:.2f} requests/s; latency median "
+        f"{np.median(lat):.1f} ms, worst {lat[-1]:.1f} ms; batches formed {sizes}; instances "
+        f"per reply {n_inst}; launches {by_path['serve_http']}")
+    # the same work without HTTP, split: detect_many, then the replies' RLE and JSON
+    t0 = time.perf_counter()
+    dets = pipe.detect_many(images, batch_size=4)
+    t1 = time.perf_counter()
+    bodies_out = [json.dumps(dets_to_json(d, conf)) for d in dets]
+    t2 = time.perf_counter()
+    log(f"serve_http split, the same 16 images in-process: detect_many {(t1 - t0) * 1e3:.1f} ms, "
+        f"dets_to_json (RLE of {sum(n_inst)} masks) + json.dumps {(t2 - t1) * 1e3:.1f} ms "
+        f"({sum(map(len, bodies_out)) / 2**20:.2f} MiB of replies); the rest of the wall is "
+        f"HTTP, .npy decoding and waiting for batches")
+
+    # (ii) single mode, as `serve --http 0 --conf 0` builds it
+    srv = build_server(parse_args(["--http", "0", "--conf", str(conf)]), pipe, host="127.0.0.1")
+    thread = _serve_in_thread(srv)
+    try:
+        reset_launch_counts()
+        got = [_post(srv.server_address[1], bodies[j]) for j in (0, 1)]
+        by_path["serve_http_single"] = launch_counts()
+    finally:
+        _stop(srv, thread)
+    for j, (status, obj, _) in zip((0, 1), got):
+        want = json.loads(json.dumps(dets_to_json(pipe.detect(images[j]), conf)))
+        if status != 200 or obj != want:
+            raise AssertionError(f"single-mode server: the reply for image {j} differs from "
+                                 "dets_to_json(pipe.detect(im))")
+    log(f"serve_http single mode: replies for images 0 and 1 ({len(got[0][1]['instances'])} "
+        f"and {len(got[1][1]['instances'])} instances) equal dets_to_json(pipe.detect(im)); "
+        f"{', '.join(f'{r[2] * 1e3:.1f} ms' for r in got)}")
+
+    # (iii) the batched artifact in a fresh subprocess, on phase 4a's canvases
+    arch = model.arch
+    g = torch.Generator(device="cuda").manual_seed(1)
+    canvases = torch.randint(0, 256, (4, *arch.canvas, 3), generator=g, device="cuda",
+                             dtype=torch.uint8)
+    infos = torch.tensor([[float(arch.canvas[0]), float(arch.canvas[1]), 1.0]] * 4,
+                         device="cuda")
+    t0 = time.perf_counter()
+    blob = export_inference(model, pipe.post, batch=4)
+    t_export = time.perf_counter() - t0
+    path = os.path.join(tmp, "mnc_vgg16_b4.pt2")
+    t0 = time.perf_counter()
+    save_exported(path, blob)
+    t_save = time.perf_counter() - t0
+    size_mb = len(blob) / 2**20
+    del blob
+    inputs, outputs = os.path.join(tmp, "canvases.pt"), os.path.join(tmp, "exported_out.pt")
+    torch.save({"canvases": canvases.cpu(), "im_infos": infos.cpu()}, inputs)
+    sub = _subprocess_artifact(path, inputs, outputs)
+    by_path["exported"] = sub["launches"]
+    got = torch.load(outputs)
+    want = {k: v.cpu() for k, v in pipe.detect_canvas_batch(canvases, infos).items()}
+    if set(got) != set(want):
+        raise AssertionError(f"exported: keys {sorted(got)} vs {sorted(want)}")
+    for key in ("valid", "classes", "canvas_masks"):
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f"exported: {key} differs from detect_canvas_batch")
+    diffs = {k: (got[k].float() - want[k].float()).abs().max().item()
+             for k in ("boxes", "scores", "masks")}
+    log(f"exported B=4 artifact on {device_label}: {size_mb:.1f} MiB; export "
+        f"{t_export:.1f} s, save {t_save:.1f} s, load in a fresh process {sub['load_s']:.1f} s "
+        f"(no model code imported); valid, classes and canvas masks identical to "
+        f"detect_canvas_batch; max abs diff {diffs} (tolerances boxes 1e-3, scores 1e-6, "
+        f"masks 1e-5); launches {sub['launches']}")
+    if diffs["boxes"] > 1e-3 or diffs["scores"] > 1e-6 or diffs["masks"] > 1e-5:
+        raise AssertionError("exported: floats differ from detect_canvas_batch beyond tolerance")
+    # request times, exported against eager, interleaved in this process: one
+    # warm-up each, then N_TIMED pairs, the order alternating by pair
+    exported = load_exported(path)
+    calls = {"exported": lambda: exported(canvases, infos),
+             "eager": lambda: pipe.detect_canvas_batch(canvases, infos)}
+    ms = {name: [] for name in calls}
+    for fn in calls.values():
+        fn()
+    for j in range(N_TIMED):
+        for name in (("exported", "eager") if j % 2 == 0 else ("eager", "exported")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[name]()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    del exported, calls
+    pct = {name: np.percentile(v, [10, 50, 90]) for name, v in ms.items()}
+    log(f"request of 4 canvases, {N_TIMED} interleaved pairs on {device_label}: "
+        + "; ".join(f"{name} median {p[1]:.3f} ms (p10 {p[0]:.3f}, p90 {p[2]:.3f}, min "
+                    f"{min(ms[name]):.3f}, max {max(ms[name]):.3f})" for name, p in pct.items())
+        + f"; exported/eager median {pct['exported'][1] / pct['eager'][1] - 1:+.2%}")
+
+    # (iv) ExportedPipeline.detect against MNCPipeline.detect
+    t0 = time.perf_counter()
+    single = ExportedPipeline(export_inference(model, pipe.post))
+    t_single = time.perf_counter() - t0
+    a, b = single.detect(images[0]), pipe.detect(images[0])
+    if set(a) != set(b) or not all(np.array_equal(a[k], b[k]) for k in b):
+        raise AssertionError("ExportedPipeline.detect differs from MNCPipeline.detect")
+    log(f"ExportedPipeline.detect of image 0 ({images[0].shape[0]}x{images[0].shape[1]}): every "
+        f"key equal to MNCPipeline.detect ({int(b['valid'].sum())} valid); single-image "
+        f"export + load {t_single:.1f} s")
+    return by_path
+
+
 @contextlib.contextmanager
 def cfg_restored():
     from mnc_tpu_torch import config as C
@@ -1313,6 +1654,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         model = import_caffemodel(tmp)
         by_path["detect_many"], _ = stream_path(label, model)
+        custom_op_overhead(g)
+        entry_paths = serving_entry_points(label, model, tmp)
+        by_path.update(entry_paths)
         del model
         torch.cuda.empty_cache()
         small_detect_many_agrees()
@@ -1334,7 +1678,7 @@ def main(argv=None) -> int:
     # the paths that must launch each kernel
     serving = ("serve", "serve_resnet101_conv5", "serve_resnet101_fc")
     training = ("train", "train_resnet101_conv5")
-    serving += ("detect_many",)
+    serving += ("detect_many", "serve_http", "serve_http_single", "exported")
     must = {"roi_warp": serving + training, "roi_warp_bwd": training,
             "nms": serving + training, "paste_binarize": serving,
             "block1": ("train_fused_block1",)}

@@ -16,7 +16,8 @@ so the evaluator serves PASCAL/SBD, COCO and the synthetic dataset alike:
     gt   = per image: list of {class_id, mask}
 
 Mask IoU is computed with numpy (:func:`mask_iou_matrix`, the JAX
-package's fallback for its native helper, which the port does not have).
+package's fallback for its native helper; ``mnc_tpu_torch.native`` exports
+this same function).
 """
 
 from __future__ import annotations

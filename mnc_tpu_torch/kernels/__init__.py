@@ -5,8 +5,12 @@ contiguity and raises on anything else, allocates its outputs with
 ``torch.empty``, launches on the current stream, raises if the launch
 returns a CUDA error, and then adds one to its ``launches`` counter — a
 plain integer attribute, so a run can show which kernels the main path
-went through.  The ops modules call these for CUDA tensors and their plain
-PyTorch versions for CPU tensors; nothing here falls back.
+went through.  The ops modules register each kernel as a ``torch.library``
+custom op (``mnc::roi_warp``, ``mnc::nms_keep``, ``mnc::paste_binarize``,
+``mnc::block1``) whose CUDA implementation calls the wrapper here and whose
+CPU implementation is the plain PyTorch version; the gradients (A′, and D's
+backward through its plain version) are called from ``autograd.Function``s.
+Nothing here falls back.
 
     roi_warp_cuda        — kernel A, csrc/roi_warp.cu (replaces roi_warp_pallas)
     roi_warp_bwd_cuda    — kernel A', csrc/roi_warp_bwd.cu (replaces its VJP)

@@ -28,7 +28,7 @@ from mnc_tpu_torch.models.heads import ClassifyHead, MaskHead, RPNHead
 from mnc_tpu_torch.models.resnet import _DEPTHS, ConvRoIHead, FrozenBN, ResNetTrunk
 from mnc_tpu_torch.models.vgg import VGG16Trunk
 from mnc_tpu_torch.ops.anchors import shifted_anchors
-from mnc_tpu_torch.ops.bbox import bbox_transform_inv, clip_boxes
+from mnc_tpu_torch.ops.bbox import bbox_transform_inv, clip_boxes, take_rows
 from mnc_tpu_torch.ops.nms import nms_indices
 from mnc_tpu_torch.ops.roi_warp import roi_warp
 from mnc_tpu_torch.utils.blob import device_normalize
@@ -210,12 +210,6 @@ def _arch_constants(arch: MNCArch, device: torch.device) -> dict:
             "bbox_stds": t(arch.bbox_stds), "bbox_means": t(arch.bbox_means)}
 
 
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (B, K, ...) indexed per batch row by idx (B, ...) → (B, ..., ...)."""
-    bidx = torch.arange(x.shape[0], device=x.device).view(-1, *([1] * (idx.dim() - 1)))
-    return x[bidx, idx]
-
-
 # --------------------------------------------------------------------------- #
 # ProposalLayer (≙ lib/pylayer/proposal_layer.py)
 # --------------------------------------------------------------------------- #
@@ -256,7 +250,7 @@ def propose_rois(rpn_cls: torch.Tensor, rpn_bbox: torch.Tensor, im_info: torch.T
     top = torch.sort(masked, dim=-1, descending=True, stable=True)
     top_scores = top.values[:, :arch.pre_nms_top_n]
     top_idx = top.indices[:, :arch.pre_nms_top_n]
-    top_boxes = _take(boxes, top_idx)
+    top_boxes = take_rows(boxes, top_idx)
     top_valid = top_scores > neg_inf
 
     # presorted: descending scores with the invalid padding trailing.  NMS
@@ -265,7 +259,7 @@ def propose_rois(rpn_cls: torch.Tensor, rpn_bbox: torch.Tensor, im_info: torch.T
                                   arch.rpn_nms_thresh,
                                   arch.post_nms_top_n, chunk=arch.nms_chunk,
                                   presorted=True)
-    rois = _take(top_boxes, idx)
+    rois = take_rows(top_boxes, idx)
     roi_scores = torch.where(keep_valid, torch.gather(top_scores, 1, idx),
                              torch.zeros((), device=idx.device))
     if single:

@@ -103,3 +103,9 @@ def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor) -> torch.Tenso
     inter = iw * ih
     union = bbox_area(boxes).unsqueeze(-1) + bbox_area(query_boxes).unsqueeze(-2) - inter
     return inter / union.clamp_min(1.0)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, K, ...) indexed per batch row by idx (B, ...) → (B, ..., ...)."""
+    bidx = torch.arange(x.shape[0], device=x.device).view(-1, *([1] * (idx.dim() - 1)))
+    return x[bidx, idx]

@@ -8,7 +8,10 @@ rounding), ReLU and max in bf16.  A CUDA tensor goes to kernel D
 chip; a CPU tensor goes to :func:`block1_plain`.  Weights are the trunk's
 own ``conv1_1``/``conv1_2`` tensors (OIHW, any float dtype); the kernel
 reads them in its own layout (:func:`pack_block1_weights`), packed once per
-weight version (:func:`packed_block1_weights`).
+weight version (:func:`packed_block1_weights`).  Without a gradient the call
+goes through the custom op ``mnc::block1``, which takes the OIHW weights and
+packs them inside its CUDA implementation, so that ``torch.export`` sees one
+opaque node and none of the packing cache.
 
 Gradient: as in the JAX package, whose VJP delegates to its unfused
 reference, the backward of the fused call differentiates
@@ -118,6 +121,28 @@ def packed_block1_weights(w1, b1, w2, b2):
     return packed
 
 
+@torch.library.custom_op("mnc::block1", mutates_args=(), device_types="cpu")
+def block1_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """Kernel D as a custom op: (B, H, W, 3) images and OIHW weights →
+    (B, H/2, W/2, 64) bf16."""
+    return block1_plain(x, w1, b1, w2, b2)
+
+
+@block1_op.register_kernel("cuda")
+def _block1_op_cuda(x, w1, b1, w2, b2):
+    from mnc_tpu_torch.kernels import block1_cuda
+
+    return block1_cuda(x.to(torch.bfloat16).contiguous(),
+                       *packed_block1_weights(w1, b1, w2, b2))
+
+
+@block1_op.register_fake
+def _block1_op_fake(x, w1, b1, w2, b2):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h // 2, w // 2, 64), dtype=torch.bfloat16)
+
+
 class Block1Function(torch.autograd.Function):
     """Kernel D forward; backward through the unfused :func:`block1_plain`.
     The last four arguments are the packed weights (no gradient)."""
@@ -145,6 +170,8 @@ def fused_block1(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.
                  b2: torch.Tensor) -> torch.Tensor:
     """Block 1 of VGG-16 on (B, H, W, 3) images (H, W even) → (B, H/2, W/2,
     64) bf16: kernel D on the card, :func:`block1_plain` on the CPU."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2))):
+        return block1_op(x, w1, b1, w2, b2)
     if x.is_cuda:
         return Block1Function.apply(x, w1, b1, w2, b2,
                                     *packed_block1_weights(w1, b1, w2, b2))

@@ -7,7 +7,8 @@ restricted to the box, then ``> thresh``.  A CUDA tensor goes to kernel C
 (``csrc/paste.cu``, which keeps the float product on chip and writes only
 the boolean canvas); a CPU tensor goes to :func:`paste_binarize_plain`.  The
 hats come from :func:`_paste_axis_weights` on either device, so both share
-every geometric convention.
+every geometric convention.  Both go through the custom op
+``mnc::paste_binarize``, which ``torch.export`` keeps as one opaque node.
 """
 
 from __future__ import annotations
@@ -81,6 +82,26 @@ def paste_binarize_plain(wy: torch.Tensor, masks: torch.Tensor, wxt: torch.Tenso
     return torch.bmm(torch.bmm(wy, masks), wxt) > thresh
 
 
+@torch.library.custom_op("mnc::paste_binarize", mutates_args=(), device_types="cpu")
+def paste_binarize_op(wy: torch.Tensor, masks: torch.Tensor, wxt: torch.Tensor,
+                      thresh: float) -> torch.Tensor:
+    """Kernel C as a custom op: contiguous f32 (N, H, M), (N, M, M), (N, M,
+    W) → bool (N, H, W)."""
+    return paste_binarize_plain(wy, masks, wxt, thresh)
+
+
+@paste_binarize_op.register_kernel("cuda")
+def _paste_binarize_op_cuda(wy, masks, wxt, thresh):
+    from mnc_tpu_torch.kernels import paste_binarize_cuda
+
+    return paste_binarize_cuda(wy, masks, wxt, thresh)
+
+
+@paste_binarize_op.register_fake
+def _paste_binarize_op_fake(wy, masks, wxt, thresh):
+    return wy.new_empty((wy.shape[0], wy.shape[1], wxt.shape[2]), dtype=torch.bool)
+
+
 def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, canvas_hw: tuple[int, int],
                 binarize_thresh: float) -> torch.Tensor:
     """Unmold (..., M, M) soft masks in box frames into bool (..., H, W)
@@ -93,11 +114,6 @@ def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, canvas_hw: tuple[int, 
     wy = _paste_axis_weights(boxes[:, 1], boxes[:, 3], m, h)  # (N, H, M)
     wxt = _paste_axis_weights(boxes[:, 0], boxes[:, 2], m, w).transpose(1, 2)
     masks = masks.reshape(-1, m, m).float()
-    if masks.is_cuda:
-        from mnc_tpu_torch.kernels import paste_binarize_cuda
-
-        out = paste_binarize_cuda(wy.contiguous(), masks.contiguous(),
-                                  wxt.contiguous(), binarize_thresh)
-    else:
-        out = paste_binarize_plain(wy, masks, wxt, binarize_thresh)
+    out = paste_binarize_op(wy.contiguous(), masks.contiguous(), wxt.contiguous(),
+                            float(binarize_thresh))
     return out.reshape(*lead, h, w)

@@ -7,7 +7,9 @@ problem of a batch (B images at the proposal stage, B × classes per-class).
 A CUDA tensor goes to kernel B (``csrc/nms.cu``: one launch that scans each
 problem in chunks of 64 candidates on a thread-block cluster); a CPU tensor
 goes to :func:`nms_keep_plain`, the fixpoint formulation of the JAX package's
-``nms_fixed``.
+``nms_fixed``.  Both go through the custom op ``mnc::nms_keep``, which
+``torch.export`` keeps as one opaque node: the plain version's loop ends on
+a comparison of tensors, which a trace cannot follow.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,
     iou = bbox_overlaps(boxes, boxes)
     upper = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
     sup = (iou > _f32(thresh)) & upper & valid.unsqueeze(-1)
-    keep = valid
+    keep = valid.clone()  # a fresh tensor also when nothing is suppressed
     for _ in range(k):
         new = valid & ~(keep.unsqueeze(-1) & sup).any(-2)
         if torch.equal(new, keep):
@@ -47,17 +49,31 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,
     return keep
 
 
+@torch.library.custom_op("mnc::nms_keep", mutates_args=(), device_types="cpu")
+def nms_keep_op(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,
+                top_n: int) -> torch.Tensor:
+    """Kernel B as a custom op: contiguous (P, K, 4) f32 sorted boxes, (P, K)
+    valid → (P, K) bool keep."""
+    return nms_keep_plain(boxes, valid, thresh, top_n)
+
+
+@nms_keep_op.register_kernel("cuda")
+def _nms_keep_op_cuda(boxes, valid, thresh, top_n):
+    from mnc_tpu_torch.kernels import nms_keep_cuda
+
+    return nms_keep_cuda(boxes, valid, thresh, top_n)
+
+
+@nms_keep_op.register_fake
+def _nms_keep_op_fake(boxes, valid, thresh, top_n):
+    return valid.new_empty(valid.shape)
+
+
 def _nms_keep(boxes, valid, thresh, top_n):
     lead = boxes.shape[:-2]
     k = boxes.shape[-2]
-    b = boxes.reshape(-1, k, 4).contiguous()
-    v = valid.reshape(-1, k).contiguous()
-    if boxes.is_cuda:
-        from mnc_tpu_torch.kernels import nms_keep_cuda
-
-        keep = nms_keep_cuda(b, v, _f32(thresh), top_n)
-    else:
-        keep = nms_keep_plain(b, v, thresh, top_n)
+    keep = nms_keep_op(boxes.reshape(-1, k, 4).contiguous(),
+                       valid.reshape(-1, k).contiguous(), _f32(thresh), int(top_n))
     return keep.reshape(*lead, k)
 
 

@@ -13,8 +13,10 @@ with zero contribution outside the feature map.  A CUDA tensor goes to
 kernel A (``csrc/roi_warp.cu``, a direct 4-tap gather) and, when a gradient
 is required, through :class:`RoIWarpFunction`, whose backward is kernel A′
 (``csrc/roi_warp_bwd.cu``); a CPU tensor goes to :func:`roi_warp_plain`, the
-JAX package's hat-matrix einsum, differentiated by autograd.  ``roi_pool``
-is not ported yet.
+JAX package's hat-matrix einsum, differentiated by autograd.  Without a
+gradient the call goes through the custom op ``mnc::roi_warp`` (kernel A on
+CUDA, the plain version on the CPU, a fake for tracing), which
+``torch.export`` keeps as one opaque node.  ``roi_pool`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -76,6 +78,27 @@ def roi_warp_plain(features: torch.Tensor, rois: torch.Tensor, out_hw,
     return out.to(dt)
 
 
+@torch.library.custom_op("mnc::roi_warp", mutates_args=(), device_types="cpu")
+def roi_warp_op(features: torch.Tensor, rois: torch.Tensor, out_h: int, out_w: int,
+                spatial_scale: float) -> torch.Tensor:
+    """Kernel A as a custom op: contiguous features (B, H, W, C), f32 rois
+    (B, N, 4) → (B, N, out_h, out_w, C) in the feature dtype."""
+    return roi_warp_plain(features, rois, (out_h, out_w), spatial_scale)
+
+
+@roi_warp_op.register_kernel("cuda")
+def _roi_warp_op_cuda(features, rois, out_h, out_w, spatial_scale):
+    from mnc_tpu_torch.kernels import roi_warp_cuda
+
+    return roi_warp_cuda(features, rois, (out_h, out_w), spatial_scale)
+
+
+@roi_warp_op.register_fake
+def _roi_warp_op_fake(features, rois, out_h, out_w, spatial_scale):
+    b, n = rois.shape[:2]
+    return features.new_empty((b, n, out_h, out_w, features.shape[-1]))
+
+
 class RoIWarpFunction(torch.autograd.Function):
     """Kernel A forward, kernel A′ backward (CUDA tensors only).
 
@@ -125,14 +148,12 @@ def roi_warp(features: torch.Tensor, rois: torch.Tensor,
     single = features.dim() == 3
     if single:
         features, rois = features.unsqueeze(0), rois.unsqueeze(0)
-    if features.is_cuda:
-        features, rois = features.contiguous(), rois.float().contiguous()
-        if torch.is_grad_enabled() and (features.requires_grad or rois.requires_grad):
-            out = RoIWarpFunction.apply(features, rois, tuple(out_hw), spatial_scale)
-        else:
-            from mnc_tpu_torch.kernels import roi_warp_cuda
-
-            out = roi_warp_cuda(features, rois, out_hw, spatial_scale)
+    if not (torch.is_grad_enabled() and (features.requires_grad or rois.requires_grad)):
+        out = roi_warp_op(features.contiguous(), rois.float().contiguous(), *out_hw,
+                          spatial_scale)
+    elif features.is_cuda:
+        out = RoIWarpFunction.apply(features.contiguous(), rois.float().contiguous(),
+                                    tuple(out_hw), spatial_scale)
     else:
         out = roi_warp_plain(features, rois.float(), out_hw, spatial_scale)
     return out[0] if single else out

@@ -24,16 +24,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from mnc_tpu_torch.config import cfg
-from mnc_tpu_torch.models.mnc import MNC, MNCArch, _take
+from mnc_tpu_torch.ops.bbox import take_rows
 from mnc_tpu_torch.ops.mask_voting import box_voting_per_det, mask_voting_per_det
 from mnc_tpu_torch.ops.masks import paste_masks
 from mnc_tpu_torch.ops.nms import nms_indices
 from mnc_tpu_torch.utils.blob import prep_im_for_blob, resize_linear
+
+if TYPE_CHECKING:  # the host half runs without the model code (pipeline/export.py)
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +115,7 @@ def postprocess_detections(rois: torch.Tensor, roi_valid: torch.Tensor,
     top = torch.sort(key, dim=-1, descending=True, stable=True)
     top_scores, top_idx = top.values[:, :k], top.indices[:, :k]
     roi_idx = torch.gather(flat_idx, 1, top_idx)  # original roi of each detection
-    det_boxes = _take(rois, roi_idx)
+    det_boxes = take_rows(rois, roi_idx)
     det_classes = flat_cls[top_idx]
 
     if post.use_mask_merge:
@@ -123,18 +127,18 @@ def postprocess_detections(rois: torch.Tensor, roi_valid: torch.Tensor,
         cand = torch.where(roi_valid.unsqueeze(1), cand, torch.zeros((), device=cand.device))
         cs_sort = torch.sort(cand, dim=-1, descending=True, stable=True)
         cs, ci = cs_sort.values[..., :kv], cs_sort.indices[..., :kv]  # (B, K, kv)
-        cand_boxes = _take(rois, ci).reshape(b * k, kv, 4)
+        cand_boxes = take_rows(rois, ci).reshape(b * k, kv, 4)
         cs = cs.reshape(b * k, kv)
         flat_boxes = det_boxes.reshape(b * k, 4)
         if post.vote_boxes:
             flat_boxes = box_voting_per_det(flat_boxes, cand_boxes, cs, post.mask_merge_iou)
             det_boxes = flat_boxes.reshape(b, k, 4)
-        cand_masks = _take(soft_masks, ci).reshape(b * k, kv, *soft_masks.shape[-2:])
+        cand_masks = take_rows(soft_masks, ci).reshape(b * k, kv, *soft_masks.shape[-2:])
         det_masks = mask_voting_per_det(flat_boxes, cand_boxes, cs, cand_masks,
                                         post.mask_merge_iou)
         det_masks = det_masks.reshape(b, k, *soft_masks.shape[-2:])
     else:
-        det_masks = _take(soft_masks, roi_idx)
+        det_masks = take_rows(soft_masks, roi_idx)
 
     out = {
         "boxes": det_boxes,
@@ -349,13 +353,15 @@ class MNCPipeline:
             fetch(*item)
         return results
 
+    @staticmethod
     @torch.inference_mode()
-    def _finalize_host(self, dets: dict, orig_hw: tuple[int, int], im_info, packed: bool,
-                       lap: "_Laps") -> dict:
+    def _finalize_host(dets: dict, orig_hw: tuple[int, int], im_info, packed: bool,
+                       lap: "_Laps | None" = None) -> dict:
         """One image's canvas-space outputs (on the device) → the host dict
         at the original resolution.  The canvas masks are cropped to the
         scaled image and resized to the original size where they lie, then
         (``packed``) bit-packed; only that result crosses to the host."""
+        lap = lap or _Laps(None, None)
         scale = float(im_info[2])
         full = None
         if "canvas_masks" in dets:

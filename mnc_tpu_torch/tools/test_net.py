@@ -5,15 +5,16 @@ Runs the detection pipeline over an imdb, caches the raw detections, and
 prints mAP^r @0.5/0.7 with the reference-style per-class AP table.
 
     python3 -m mnc_tpu_torch.tools.test_net --imdb synthetic_16 \\
-        [--npz PATH | --caffemodel PATH [--remap OLD=NEW ...]] [--stages 5] \\
+        [--npz PATH | --ckpt DIR | --caffemodel PATH [--remap OLD=NEW ...]] [--stages 5] \\
         [--cfg FILE] [--set KEY VAL ...] [--conf 0.0] [--eval-batch N] \\
         [--cache out.pkl] [--coco-ap] [--device cpu]
 
-``--npz`` reads a ``save_npz`` export or the port's ``train_net`` state.
-It runs on the GPU unless ``--device cpu`` is given, and raises without
-one.  The port knows the synthetic imdbs only (``synthetic[_<n>]``, whose
-images are canvases already); the JAX tool's ``--dp``, ``--segdb`` (CFM)
-and orbax ``--ckpt`` are not ported.
+``--npz`` reads a ``save_npz`` export or the port's ``train_net`` state;
+``--ckpt`` a step directory of ``train_net`` or the newest one under a run
+directory.  It runs on the GPU unless ``--device cpu`` is given, and raises
+without one.  The port knows the synthetic imdbs only (``synthetic[_<n>]``,
+whose images are canvases already); the JAX tool's ``--dp`` and ``--segdb``
+(CFM) are not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ def parse_args(argv=None):
     ap.add_argument("--imdb", default="synthetic_16")
     ap.add_argument("--npz", default=None,
                     help="save_npz export or train_net state (params/... names)")
+    ap.add_argument("--ckpt", default=None,
+                    help="train_net checkpoint: a ckpt_<step> dir or the run dir (newest)")
     ap.add_argument("--caffemodel", default=None, help="reference .caffemodel weights")
     ap.add_argument("--remap", nargs="*", default=None, metavar="OLD=NEW",
                     help="rename caffemodel layers before matching")
@@ -79,6 +82,7 @@ def main(argv=None) -> int:
     from mnc_tpu_torch.data.imdb import get_imdb
     from mnc_tpu_torch.models.mnc import MNCArch
     from mnc_tpu_torch.pipeline.inference import PostCfg, unpack_canvas_masks
+    from mnc_tpu_torch.utils.checkpoint import checkpoint_npz
     from mnc_tpu_torch.utils.device import resolve_device
     from mnc_tpu_torch.utils.timer import Timer
 
@@ -92,7 +96,8 @@ def main(argv=None) -> int:
     arch = MNCArch.from_cfg(train=False, n_stages=args.stages, canvas=imdb.gen.canvas_hw,
                             num_classes=imdb.num_classes, anchor_scales=(2, 4, 8),
                             rpn_min_size=4.0)
-    pipe, arch = build_pipeline(arch, device, args.caffemodel, args.npz, args.remap,
+    npz = checkpoint_npz(args.ckpt) if args.ckpt and not args.npz else args.npz
+    pipe, arch = build_pipeline(arch, device, args.caffemodel, npz, args.remap,
                                 PostCfg.from_cfg(score_thresh=args.conf))
 
     def host(out):

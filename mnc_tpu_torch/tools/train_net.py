@@ -9,10 +9,15 @@ Builds the architecture with ``MNCArch.from_cfg(train=True)`` and the
 synthetic overrides (the imdb's canvas and classes, small anchors), the
 solver from ``cfg.TRAIN.*``, writes every step's metrics to
 ``<out>/train_metrics.jsonl`` and prints them every ``--print-every`` steps
-(``utils.metrics.MetricsLogger``), and saves the train state as ``<out>/state_<iters>.npz`` at the end.
-It runs on the GPU unless ``--device cpu`` is given, and raises without one.
-Real-data imdbs, ``TrainLoader`` (flipping, scaling) and orbax snapshots are
-not ported.
+(``utils.metrics.MetricsLogger``), snapshots the train state every
+``TRAIN.SNAPSHOT_ITERS`` steps and at the end into ``<out>/ckpt_<step>/``
+(the newest 5 kept; ``utils.checkpoint.save_checkpoint``; the final state
+is ``<out>/ckpt_<iters>/train_state.npz``) and resumes from the newest
+snapshot under ``<out>``.  Each step draws its images and its random
+numbers from generators seeded by (seed, step), so a resumed run takes the
+same steps as one that was not interrupted.  It runs on the GPU unless
+``--device cpu`` is given, and raises without one.  Real-data imdbs and
+``TrainLoader`` (flipping, scaling) are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 import argparse
 import os
 import time
+
+import numpy as np
 
 
 def parse_args(argv=None):
@@ -46,7 +53,8 @@ def main(argv=None) -> int:
     from mnc_tpu_torch.models.mnc import MNC, MNCArch
     from mnc_tpu_torch.train.loop import TrainState, make_train_step, train_cfg_from_cfg
     from mnc_tpu_torch.train.optim import make_optimizer
-    from mnc_tpu_torch.utils.checkpoint import save_train_state
+    from mnc_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_latest,
+                                                save_checkpoint)
     from mnc_tpu_torch.utils.device import resolve_device
     from mnc_tpu_torch.utils.metrics import MetricsLogger
 
@@ -71,31 +79,36 @@ def main(argv=None) -> int:
         stepsize=cfg.TRAIN.STEPSIZE, iter_size=cfg.TRAIN.ITER_SIZE,
         clip_gradients=cfg.TRAIN.CLIP_GRADIENTS)
     step_fn = make_train_step(model, opt, arch, train_cfg_from_cfg(cfg))
-    state = TrainState.create(model, opt)
+    out_dir = args.out or os.path.join("output", args.imdb)
+    state, start = restore_latest(out_dir, TrainState.create(model, opt))
+    if start:
+        print(f"resumed from iter {start}", flush=True)
 
     ims = args.ims_per_batch or cfg.TRAIN.IMS_PER_BATCH
     max_iters = args.iters or cfg.TRAIN.MAX_ITERS
-    out_dir = args.out or os.path.join("output", args.imdb)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    order = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=device)
+    order = torch.Generator()
     print(f"training on {device} ({arch.n_stages}-stage, canvas {arch.canvas}, "
           f"{ims} image(s) per step, {max_iters} iters)", flush=True)
     logger = MetricsLogger(os.path.join(out_dir, "train_metrics.jsonl"), args.print_every)
     t0 = time.perf_counter()
-    for it in range(max_iters):
+    for it in range(start, max_iters):
+        step_seed = int(np.random.SeedSequence([seed, it]).generate_state(1)[0])
+        order.manual_seed(step_seed)
+        gen.manual_seed(step_seed)
         idx = torch.randint(0, n_images, (ims,), generator=order).tolist()
         batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(idx).items()}
         lr = opt.lr
         state, metrics = step_fn(state, batch, gen)
         logger.log(it + 1, {k: float(v) for k, v in metrics.items()}, lr=lr)
+        if (it + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0 or it + 1 == max_iters:
+            print(f"snapshot → {save_checkpoint(out_dir, state, step=it + 1)}", flush=True)
     logger.close()
     if device.type == "cuda":
         torch.cuda.synchronize()
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"state_{max_iters}.npz")
-    save_train_state(path, state)
-    print(f"done: {max_iters} iters, avg {(time.perf_counter() - t0) / max_iters:.3f} s/iter; "
-          f"state → {path}")
+    n = max(max_iters - start, 1)
+    print(f"done: {max_iters} iters, avg {(time.perf_counter() - t0) / n:.3f} s/iter; "
+          f"state → {latest_checkpoint(out_dir)}")
     return 0
 
 

@@ -15,8 +15,10 @@ JAX package: ``load_npz`` reads the flat npz that
 ``save_train_state`` writes the parameters under the same flat names
 (``params/<module>/.../kernel|bias|scale`` in JAX's layout), so that
 package's ``load_npz`` reads them back; the step and the solver state ride
-along under ``__meta__/`` and ``__opt__/`` names.  Orbax directories are not
-ported.
+along under ``__meta__/`` and ``__opt__/`` names.  The JAX package's orbax
+step directories become step directories holding that npz
+(``save_checkpoint``, ``latest_checkpoint``, ``restore_checkpoint``,
+``restore_latest``).
 
 On JAX-layout trees (numpy leaves) it also carries the rest of that
 package's npz checkpoint: ``save_npz`` / ``npz_meta`` / ``arch_for_npz``,
@@ -29,6 +31,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
+import os.path as osp
+import shutil
 
 import numpy as np
 import torch
@@ -144,6 +149,78 @@ def load_train_state(path: str, state) -> None:
                {"params": opt_tree["acc"]}).items()} if "acc" in opt_tree else None)}
     state.opt.load_state_dict(opt)
     state.step = int(meta["step"])
+
+
+# --------------------------------------------------------------------------- #
+# Step directories (≙ the orbax functions of mnc_tpu/utils/checkpoint.py)
+# --------------------------------------------------------------------------- #
+
+STATE_FILE = "train_state.npz"
+
+
+def _is_complete(name: str) -> bool:
+    return name.startswith("ckpt_") and not name.endswith("-tmp")
+
+
+def save_checkpoint(directory: str, state, step: int | None = None, keep: int = 5) -> str:
+    """Save ``state`` (:func:`save_train_state`) as
+    ``<directory>/ckpt_<step:08d>/train_state.npz`` and keep the newest
+    ``keep`` checkpoints.  The step directory is written as ``...-tmp`` and
+    renamed when complete, so a crash leaves no directory that
+    :func:`latest_checkpoint` would pick; stale ``-tmp`` ones are removed
+    here."""
+    step = int(state.step) if step is None else int(step)
+    os.makedirs(directory, exist_ok=True)
+    path = osp.join(directory, f"ckpt_{step:08d}")
+    tmp = path + "-tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    save_train_state(osp.join(tmp, STATE_FILE), state)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+    names = os.listdir(directory)
+    complete = sorted(n for n in names if _is_complete(n))
+    stale = [n for n in names if n.startswith("ckpt_") and n.endswith("-tmp")]
+    for n in complete[:-keep] + stale:
+        shutil.rmtree(osp.join(directory, n), ignore_errors=True)
+    return path
+
+
+def latest_checkpoint(directory: str) -> str | None:
+    """The newest complete ``ckpt_*`` directory under ``directory`` (None
+    if there is none)."""
+    if not osp.isdir(directory):
+        return None
+    cks = sorted(n for n in os.listdir(directory) if _is_complete(n))
+    return osp.join(directory, cks[-1]) if cks else None
+
+
+def checkpoint_npz(path: str) -> str:
+    """A ``--ckpt`` argument → the npz to read: a step directory's state
+    file, or that of the newest step under a run directory."""
+    if osp.isdir(path) and not osp.basename(osp.normpath(path)).startswith("ckpt_"):
+        found = latest_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        path = found
+    return osp.join(path, STATE_FILE) if osp.isdir(path) else path
+
+
+def restore_checkpoint(path: str, state):
+    """Restore a step directory (or its npz) into ``state`` in place and
+    return it."""
+    load_train_state(checkpoint_npz(path), state)
+    return state
+
+
+def restore_latest(directory: str, state):
+    """Resume from the newest checkpoint under ``directory``: (state, step),
+    ``state`` untouched and step 0 when there is none."""
+    path = latest_checkpoint(directory)
+    if path is None:
+        return state, 0
+    restore_checkpoint(path, state)
+    return state, int(state.step)
 
 
 # --------------------------------------------------------------------------- #

@@ -360,3 +360,69 @@ def test_mask_resize_and_packing_on_the_card_equal_the_cpu(gen):
     full = _resize_mask_to(masks, (375, 500))
     assert torch.equal(full.cpu(), _resize_mask_to(masks.cpu(), (375, 500)))
     assert torch.equal(pack_bits(full).cpu(), pack_bits(full.cpu()))
+
+
+def test_custom_ops_on_the_card_equal_the_direct_wrappers(gen):
+    """mnc::roi_warp, mnc::nms_keep, mnc::paste_binarize and mnc::block1 on
+    CUDA tensors launch their kernel once and give the direct wrapper's
+    output, bit for bit."""
+    from mnc_tpu_torch.ops.block1 import block1_op, packed_block1_weights
+    from mnc_tpu_torch.ops.masks import paste_binarize_op
+    from mnc_tpu_torch.ops.nms import nms_keep_op
+    from mnc_tpu_torch.ops.roi_warp import roi_warp_op
+
+    feat = torch.randn(2, 12, 16, 24, generator=gen, device="cuda").to(torch.bfloat16)
+    rois = _boxes(gen, (2, 37), 192, 256)
+    boxes = _boxes(gen, (3, 300), 640, 1024, lo=16.0, hi=300.0)
+    valid = torch.rand(3, 300, generator=gen, device="cuda") > 0.2
+    wy = _paste_axis_weights(rois[0, :, 1], rois[0, :, 3], 21, 96)
+    wxt = _paste_axis_weights(rois[0, :, 0], rois[0, :, 2], 21, 128).transpose(1, 2).contiguous()
+    masks = torch.rand(37, 21, 21, generator=gen, device="cuda")
+    x = torch.randn(2, 40, 50, 3, generator=gen, device="cuda") * 50
+    ws = (torch.randn(64, 3, 3, 3, generator=gen, device="cuda") * 0.1,
+          torch.randn(64, generator=gen, device="cuda"),
+          torch.randn(64, 64, 3, 3, generator=gen, device="cuda") * 0.05,
+          torch.randn(64, generator=gen, device="cuda"))
+    cases = [(lambda: roi_warp_op(feat, rois, 14, 14, 1.0 / 16),
+              lambda: kernels.roi_warp_cuda(feat, rois, (14, 14), 1.0 / 16), "roi_warp_cuda"),
+             (lambda: nms_keep_op(boxes, valid, 0.7, 100),
+              lambda: kernels.nms_keep_cuda(boxes, valid, 0.7, 100), "nms_keep_cuda"),
+             (lambda: paste_binarize_op(wy, masks, wxt, 0.4),
+              lambda: kernels.paste_binarize_cuda(wy, masks, wxt, 0.4), "paste_binarize_cuda"),
+             (lambda: block1_op(x, *ws),
+              lambda: kernels.block1_cuda(x.to(torch.bfloat16), *packed_block1_weights(*ws)),
+              "block1_cuda")]
+    for op, direct, wrapper in cases:
+        kernels.reset_launch_counts()
+        got = op()
+        assert kernels.launch_counts()[wrapper] == 1
+        assert torch.equal(got, direct())
+
+
+def test_exported_fused_block1_program_on_the_card(gen):
+    """A small bf16 model with ``fused_block1`` exported on the card: the
+    artifact launches kernels D, A, B and C through their custom ops and
+    gives the live pipeline's outputs, bit for bit."""
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.pipeline.export import deserialize_inference, export_inference
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
+
+    arch = MNCArch(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
+                   warp_hw=4, n_stages=3, fc_dim=64, mask_fc_dim=32, pre_nms_top_n=32,
+                   post_nms_top_n=8, rpn_min_size=4.0, compute_dtype=torch.bfloat16,
+                   fused_block1=True)
+    model = MNC(arch, device="cuda")
+    post = PostCfg(dets_per_class=4, max_per_image=8)
+    fn = deserialize_inference(export_inference(model, post, batch=2))
+    imgs = torch.randint(0, 256, (2, 96, 128, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    infos = torch.tensor([[96.0, 128.0, 1.0], [80.0, 120.0, 1.0]], device="cuda")
+    want = MNCPipeline(model, post).detect_canvas_batch(imgs, infos)
+    kernels.reset_launch_counts()
+    got = fn(imgs, infos)
+    counts = kernels.launch_counts()
+    assert (counts["block1_cuda"], counts["roi_warp_cuda"], counts["nms_keep_cuda"],
+            counts["paste_binarize_cuda"]) == (1, 1, 2, 1)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -90,7 +90,7 @@ def test_train_net_refuses_to_run_without_gpu(tmp_path):
     finally:
         cfg.cfg.clear()
         cfg.cfg.update(saved)
-    assert rc == 0 and (tmp_path / "state_2.npz").exists()
+    assert rc == 0 and (tmp_path / "ckpt_00000002" / "train_state.npz").exists()
 
 
 @pytest.mark.parametrize("tool", ["test_net", "demo"])
