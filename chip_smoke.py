@@ -16,7 +16,9 @@ Phases, each printing its lines before the two JSON lines at the end:
    map; the paste also on boxes outside the canvas, of 1 px and over all of
    it, with a negative threshold and a width that is not a multiple of 16;
    the warp also on the portrait canvas's 64x40 map, the paste also at
-   M = 28 on both canvases),
+   M = 28 on both canvases; and at the shapes of ``cfm_detect``: the warp
+   on one image's 300 segments, NMS on 20 per-class problems of 300, the
+   paste at N = 100),
    then timed (CUDA events, after warm-up) beside the plain version and,
    where one PyTorch call computes the same function, that call.  NMS, the
    paste (N = 400, the serving request, and N = 100) and block 1 (B = 2 and
@@ -69,7 +71,20 @@ Phases, each printing its lines before the two JSON lines at the end:
       prints its launch counts; artifact size, export / save / load
       seconds; exported and eager request times over 60 pairs interleaved
       in one process, median and spread); ``ExportedPipeline.detect``
-      against ``MNCPipeline.detect``.
+      against ``MNCPipeline.detect``;
+   h. the CFM model family (``mnc_tpu_torch/models/cfm.py``) on 8 seeded
+      640x1024 synthetic shapes images, whose MCG-format superpixel maps
+      (each gt instance a superpixel of its own, then unions of grid cells)
+      ``tools.prepare_mcg_maskdb`` converts into a segdb of 300 segments
+      per image (one process per image): ``cfm_detect`` at full width
+      (a.'s VGG-16, bf16, seeded init) on each image's 300 segments (ms per
+      image; every detection's box a refined segment box); 3 CFM train
+      steps at full width (``from_cfg(train=True)``, 2 images a step from
+      ``TrainLoader``, 64 segments each; wall ms per step, peak memory;
+      the trunk and the classify head move, the RPN and the mask head
+      move by weight decay alone, bit for bit); then a small f32 model's
+      ``cfm_detect`` and CFM train step and ``tools/test_net --segdb`` on
+      ``synthetic_8``, card against CPU.
 5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
    of phase 3, per shape where there are several; bounds from this run's
    inputs), then ``{"ok": true, ...}``.
@@ -129,6 +144,26 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def traced(fn, n_top=8):
+    """``fn()`` under torch.profiler, synchronized: (device busy ms, kernels
+    launched, the top kernels by device time as text, wall ms traced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    top = "; ".join(f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:60]}"
+                    for e in rows[:n_top])
+    return (sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows), top,
+            wall_ms)
+
+
 def random_boxes(g, n, h, w, lo=16.0, hi=500.0):
     """(n, 4) f32 boxes with corners up to 40 px beyond the canvas."""
     dev = "cuda"
@@ -144,19 +179,21 @@ def random_boxes(g, n, h, w, lo=16.0, hi=500.0):
 
 def check_roi_warp(g):
     """Kernel A on the VGG-16 conv5 map (C = 512) and the ResNet conv4 map
-    (C = 1024) of a serving request, and on the portrait canvas's 64 x 40
-    map (C = 512); the first is the main row."""
+    (C = 1024) of a serving request, on the portrait canvas's 64 x 40 map
+    (C = 512), and on one image's 300 segments (``cfm_detect``); the first
+    is the main row."""
     shapes = {f"C={c}": _check_roi_warp(g, c) for c in (512, 1024)}
     shapes["portrait 64x40, C=512"] = _check_roi_warp(g, 512, PORTRAIT)
+    shapes["CFM 1x300, C=512"] = _check_roi_warp(g, 512, b=1, n=300)
     return dict(shapes["C=512"], shapes=shapes)
 
 
-def _check_roi_warp(g, c, canvas=CANVAS):
+def _check_roi_warp(g, c, canvas=CANVAS, b=4, n=304):
     from mnc_tpu_torch.kernels import roi_warp_cuda
     from mnc_tpu_torch.ops.roi_warp import bin_centers, roi_warp_plain
     import torch.nn.functional as F
 
-    b, n, out_hw, s = 4, 304, (14, 14), 1.0 / 16
+    out_hw, s = (14, 14), 1.0 / 16
     h, w = canvas[0] // 16, canvas[1] // 16
     feat32 = torch.randn(b, h, w, c, generator=g, device="cuda")
     rois = torch.stack([random_boxes(g, n, *canvas) for _ in range(b)])
@@ -436,6 +473,7 @@ NMS_SHAPES = {  # label: (P, K, thresh, top_n, invalid boxes trailing)
     "proposal": (4, 6000, 0.7, 304, True),
     "per-class": (80, 304, 0.3, 0, False),
     "per-class, 81 classes": (320, 304, 0.3, 0, False),  # 4 canvases x 80 COCO classes
+    "per-class, CFM 20 x 300": (20, 300, 0.3, 0, False),  # cfm_detect: 1 image, 300 segments
     "train proposal": (2, 12000, 0.7, 2000, True)}
 
 
@@ -557,7 +595,8 @@ def check_nms(g):
 # label: (detections N, canvas, mask size M); M = 28 is what a caffemodel's
 # auto-config gives (the detect_many path below), on both canvases
 PASTE_SHAPES = {"serving request": (400, CANVAS, 21), "N=100": (100, CANVAS, 21),
-                "M=28": (400, CANVAS, 28), "M=28, portrait 1024x640": (400, PORTRAIT, 28)}
+                "M=28": (400, CANVAS, 28), "M=28, portrait 1024x640": (400, PORTRAIT, 28),
+                "cfm_detect N=100": (100, CANVAS, 21)}  # one image's MAX_PER_IMAGE
 
 
 def _paste_inputs(g, boxes, h, w, m=21):
@@ -1095,22 +1134,10 @@ def stream_path(device_label, model):
     if not all(np.array_equal(a["full_masks"], b["full_masks"]) for a, b in zip(res_u, res)):
         raise AssertionError("detect_many: packed and unpacked full masks differ")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.detect_many(images, batch_size=4)
-    traced_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms, _, top, traced_ms = traced(lambda: pipe.detect_many(images, batch_size=4), 10)
     log(f"detect_many traced on {device_label}: device busy {busy_ms:.1f} ms of the best "
         f"stream's wall {min(walls) * 1e3:.1f} ms (idle share {1 - busy_ms / (min(walls) * 1e3):.3f};"
-        f" the traced stream's own wall {traced_ms:.1f} ms); top kernels: "
-        + "; ".join(f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:60]}"
-                    for e in rows[:10]))
+        f" the traced stream's own wall {traced_ms:.1f} ms); top kernels: " + top)
 
     hp = pipe.detect_many(images, batch_size=4, host_paste=True)
     _check_dets("detect_many host_paste", hp, images, model.arch.num_classes)
@@ -1573,6 +1600,394 @@ def test_net_agrees(tmp):
         f"({len(tables['cpu'].splitlines())} lines)")
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: the CFM model family
+# ---------------------------------------------------------------------------
+
+CFM_K_SERVE, CFM_K_TRAIN, CFM_IMAGES = 300, 64, 8  # test_net's and train_net's top-k
+
+
+def cfm_imdb():
+    """Eight 640x1024 synthetic shapes images (5 shape classes, 2-5
+    instances each): the data of both CFM paths."""
+    from mnc_tpu_torch.data.synth_imdb import SyntheticIMDB
+
+    return SyntheticIMDB(canvas_hw=CANVAS, num_classes=6, max_gt=32, num_images=CFM_IMAGES,
+                         seed=21, n_range=(2, 5))
+
+
+def cfm_segdb(root, imdb, k=CFM_K_SERVE, seed=0):
+    """A segdb of ``k`` segments per image of ``imdb``: MCG files written
+    for each image, then the port's ``prepare_mcg_maskdb``, one process per
+    image, all at once (each walks ~300 candidate masks over a 640x1024
+    map).  Superpixels: a grid of 64 px cells at a seeded offset, with each
+    gt instance's full mask painted over it as a superpixel of its own.
+    Candidates: every gt instance first, then seeded unions of 1-4 x 1-4
+    neighbouring cells, k + 16 in all (an instance that later ones cover
+    whole is an empty candidate, which the converter skips); each record
+    must keep at least k.  Returns the segdb directory."""
+    from scipy.io import savemat
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    h, w = imdb.gen.canvas_hw
+    cell, n_cand = 64, k + 16
+    rows, cols = h // cell + 1, w // cell + 1
+    mcg, out = os.path.join(root, "mcg"), os.path.join(root, "segdb")
+    os.makedirs(mcg)
+    yy, xx = np.mgrid[0:h, 0:w]
+    procs = []
+    for i in imdb.image_index:
+        oy, ox = rs.randint(0, cell, 2)
+        sp = (1 + ((yy + oy) // cell) * cols + (xx + ox) // cell).astype(np.int32)
+        labels = []
+        for j, m in enumerate(imdb.gen.full_masks(i)):
+            sp[m > 0.5] = 100000 + j
+            labels.append([100000 + j])
+        while len(labels) < n_cand:
+            r0, c0 = rs.randint(0, rows), rs.randint(0, cols)
+            nh, nw = rs.randint(1, 5, 2)
+            labels.append([1 + r * cols + c for r in range(r0, min(r0 + nh, rows))
+                           for c in range(c0, min(c0 + nw, cols))])
+        cand = np.empty((len(labels), 1), object)
+        for j, ids in enumerate(labels):
+            cand[j, 0] = np.array([ids], np.float64)
+        savemat(os.path.join(mcg, f"{i}.mat"), {"superpixels": sp, "labels": cand})
+        image_list = os.path.join(root, f"list_{i}.txt")
+        with open(image_list, "w") as f:
+            f.write(f"{i}\n")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mnc_tpu_torch.tools.prepare_mcg_maskdb", "--mcg-dir", mcg,
+             "--image-list", image_list, "--out", out, "--mask-size", "21", "--top-k",
+             str(n_cand)], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"prepare_mcg_maskdb failed:\n{text}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"cfm segdb: {len(procs)} images x {n_cand} MCG candidates converted by "
+        f"prepare_mcg_maskdb ({len(procs)} processes) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def cfm_serve_path(device_label, arch, imdb, segdb):
+    """``cfm_detect`` at full width (phase 4a's VGG-16, bf16, seeded init)
+    on the 8 images, each with its 300 segments, after one warm-up image.
+    The detections' arrays must be finite, some valid, and every valid
+    detection's box one of the image's refined segment boxes.  Returns the
+    launch counts of the 8 images."""
+    from mnc_tpu_torch.config import cfg
+    from mnc_tpu_torch.data.loader import load_segments
+    from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mnc_tpu_torch.models.cfm import cfm_apply, cfm_detect
+    from mnc_tpu_torch.models.mnc import MNC
+    from mnc_tpu_torch.pipeline.inference import PostCfg
+
+    model = MNC(arch, device="cuda", seed=0)
+    post = PostCfg.from_cfg()
+    inputs = []
+    for i in imdb.image_index:
+        ex = imdb.example(i)
+        boxes, masks, valid, nseg = load_segments(segdb, i, CFM_K_SERVE, cfg.MASK_SIZE)
+        if nseg != CFM_K_SERVE:
+            raise AssertionError(f"cfm segdb: image {i} has {nseg} < {CFM_K_SERVE} segments")
+        inputs.append(tuple(torch.from_numpy(x).cuda() for x in
+                            (ex["image"], ex["im_info"], boxes * float(ex["im_info"][2]), masks,
+                             valid)))
+    cfm_detect(model, *inputs[-1], post)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lat, dets = [], []
+    for x in inputs:
+        t0 = time.perf_counter()
+        out = cfm_detect(model, *x, post)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        for key in ("boxes", "scores", "masks"):
+            if not torch.isfinite(out[key]).all():
+                raise AssertionError(f"cfm_serve: {key} is not finite")
+        if out["canvas_masks"].shape != (post.max_per_image, *arch.canvas):
+            raise AssertionError(f"cfm_serve: canvas masks {tuple(out['canvas_masks'].shape)}")
+        dets.append((out["boxes"][out["valid"]].cpu(), int(out["valid"].sum())))
+        del out
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # every valid detection's box is a refined segment box (after the count)
+    worst = 0.0
+    for x, (boxes, n_valid) in zip(inputs, dets):
+        if n_valid == 0:
+            raise AssertionError("cfm_serve: an image has no valid detection")
+        refined = cfm_apply(model, *x)["boxes"][x[4]].cpu()
+        worst = max(worst, (boxes[:, None] - refined[None]).abs().amax(-1).min(1).values.max()
+                    .item())
+    if not worst <= 1e-3:
+        raise AssertionError(f"cfm_serve: a detection box is {worst} px from every refined "
+                             "segment box")
+    ms = sorted(x * 1e3 for x in lat)
+    log(f"cfm_serve: launches {counts}; valid detections per image {[n for _, n in dets]}; "
+        f"every one a refined segment box (max diff {worst:.1e} px); peak memory {peak:.2f} GiB")
+    log(f"cfm_serve on {device_label}: ms per image (1 image, {CFM_K_SERVE} segments, "
+        f"{arch.num_classes} classes) median {float(np.median(ms)):.2f}, worst {ms[-1]:.2f} "
+        f"(all: {', '.join(f'{x * 1e3:.2f}' for x in lat)})")
+    busy, n_kernels, top, _ = traced(lambda: [cfm_detect(model, *x, post) for x in inputs])
+    log(f"cfm_serve traced on {device_label}: device busy {busy / len(inputs):.3f} ms per image "
+        f"({n_kernels / len(inputs):.0f} kernels) of the untraced median "
+        f"{float(np.median(ms)):.2f} ms (idle share {1 - busy / sum(ms):.3f}); top kernels: "
+        + top)
+    del model
+    return counts
+
+
+def cfm_train_path(device_label, imdb, segdb):
+    """The CFM train step at full width: ``MNCArch.from_cfg(train=True)``
+    (f32 masters, blocks 1-2 frozen, 128 RoIs, MAX_GT 32), 2 images a step
+    from ``TrainLoader`` (flips on, top 64 segments), one warm-up step, 3
+    timed ones and a traced one.  The losses must be finite, the trunk's conv and the fc
+    and cls parameters must move, and every RPN and mask-head parameter
+    must be what decay alone makes of it (the solver's recurrence for a
+    zero gradient, bit for bit).  Returns the launch counts of the 3 steps."""
+    from mnc_tpu_torch.config import cfg
+    from mnc_tpu_torch.data.loader import TrainLoader
+    from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mnc_tpu_torch.models.cfm import make_cfm_train_step
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.train.loop import TrainState, train_cfg_from_cfg
+    from mnc_tpu_torch.train.optim import make_optimizer
+
+    arch = MNCArch.from_cfg(train=True)
+    assert (arch.canvas, arch.fc_dim, arch.trunk_frozen, cfg.TRAIN.BATCH_SIZE,
+            cfg.STATIC.MAX_GT) == (CANVAS, 4096, 2, 128, 32), arch
+    model = MNC(arch, device="cuda", seed=0, train=True)
+    opt = make_optimizer(model, base_lr=cfg.TRAIN.LEARNING_RATE, momentum=cfg.TRAIN.MOMENTUM,
+                         weight_decay=cfg.TRAIN.WEIGHT_DECAY, gamma=cfg.TRAIN.GAMMA,
+                         stepsize=cfg.TRAIN.STEPSIZE, clip_gradients=cfg.TRAIN.CLIP_GRADIENTS)
+    step = make_cfm_train_step(model, opt, arch,
+                               dict(train_cfg_from_cfg(cfg), CFM_IOU=cfg.TRAIN.CFM_IOU))
+    state = TrainState.create(model, opt)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loader = TrainLoader(imdb, canvas_hw=arch.canvas, ims_per_batch=2, seed=3,
+                         segdb_dir=segdb, seg_top_k=CFM_K_TRAIN)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    times, lrs = [], []
+    try:
+        for i in range(4):
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                     for k, v in next(loader).items()}
+            if i == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+            lrs.append(opt.lr)
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            m = {k: float(v) for k, v in metrics.items()}
+            if not all(np.isfinite(list(m.values()))):
+                raise AssertionError(f"cfm_train: a loss is not finite: {m}")
+            log(f"cfm_train step {i} ({'warm-up' if i == 0 else 'timed'}): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                 for k, v in next(loader).items()}
+        lrs.append(opt.lr)
+        busy, n_kernels, top, _ = traced(lambda: step(state, batch, gen))
+    finally:
+        loader.close()
+    log(f"cfm_train traced step on {device_label}: device busy {busy:.3f} ms ({n_kernels} "
+        f"kernels) of the untraced median wall {float(np.median(times[1:])) * 1e3:.1f} ms "
+        f"(idle share {1 - busy / (float(np.median(times[1:])) * 1e3):.3f}); top kernels: "
+        + top)
+    after = dict(model.named_parameters())
+    moved = [n for n, p in after.items() if not torch.equal(p, before[n])]
+    for prefix in ("trunk.conv5_", "classify_head.fc6.", "classify_head.cls_score."):
+        if not any(n.startswith(prefix) for n in moved):
+            raise AssertionError(f"cfm_train: no {prefix} parameter moved")
+    no_grad = [n for n in after if n.startswith(("rpn_head.", "mask_head."))]
+    for n in no_grad:
+        w, t = before[n].clone(), torch.zeros_like(before[n])
+        for lr in lrs:
+            g = torch.zeros_like(w)
+            g = g * 2.0 if n.endswith("bias") else g.add(w, alpha=opt.weight_decay)
+            t.mul_(opt.momentum).add_(g)
+            w.add_(t, alpha=-lr)
+        if not torch.equal(after[n].detach(), w):
+            raise AssertionError(f"cfm_train: {n} moved otherwise than by decay alone")
+    log(f"cfm_train: launches {counts}; {len(no_grad)} RPN and mask-head parameters moved by "
+        f"decay alone (bit-equal to the solver's zero-gradient recurrence); peak memory "
+        f"{peak:.2f} GiB")
+    log(f"cfm_train on {device_label}: wall ms per step of 2 images (K = {CFM_K_TRAIN} "
+        f"segments + MAX_GT 32, 128 RoIs each) "
+        + ", ".join(f"{x * 1e3:.1f}" for x in times[1:]) + f" (warm-up {times[0] * 1e3:.1f})")
+    del model, opt, state
+    return counts
+
+
+CFM_SMALL = dict(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
+                 warp_hw=4, compute_dtype=torch.float32, fc_dim=64, mask_fc_dim=32,
+                 pre_nms_top_n=64, post_nms_top_n=16, rpn_min_size=4.0)
+
+
+def _cfm_small_segments(rs, n, n_valid, hw, s=9):
+    h, w = hw
+    xy = np.stack([rs.uniform(0, w * 0.6, n), rs.uniform(0, h * 0.6, n)], 1)
+    boxes = np.concatenate([xy, np.minimum(xy + rs.uniform(10, 60, (n, 2)),
+                                           [w - 1, h - 1])], 1).astype(np.float32)
+    masks = (rs.uniform(size=(n, s, s)) > 0.4).astype(np.float32)
+    valid = np.arange(n) < n_valid
+    return boxes, masks, valid
+
+
+def small_cfm_detect_agrees():
+    """A small f32 model's cfm_detect on the card against the same model on
+    the CPU (plain versions of every kernel), 2 images of 40 segments:
+    selections identical, boxes 1e-2 px, scores 1e-4, soft masks 1e-3,
+    canvas pixels differing < 1e-3 (small_model_agrees' tolerances)."""
+    from mnc_tpu_torch.models.cfm import cfm_detect
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.pipeline.inference import PostCfg
+
+    arch = MNCArch(**CFM_SMALL)
+    post = PostCfg(dets_per_class=4, max_per_image=8)
+    rs = np.random.RandomState(5)
+    cases = [(rs.randint(0, 256, (96, 128, 3)).astype(np.uint8),
+              np.array([96.0, 128.0, 1.0], np.float32), *_cfm_small_segments(rs, 40, 32, (96, 128)))
+             for _ in range(2)]
+    out = {dev: [cfm_detect(MNC(arch, device=dev, seed=3), *c, post) for c in cases]
+           for dev in ("cuda", "cpu")}
+    worst = {"boxes": 0.0, "scores": 0.0, "masks": 0.0, "canvas": 0.0}
+    for g, c in zip(out["cuda"], out["cpu"]):
+        for key in ("valid", "classes"):
+            if not torch.equal(g[key].cpu(), c[key]):
+                raise AssertionError(f"small cfm_detect: {key} differs between card and CPU")
+        for key in ("boxes", "scores", "masks"):
+            worst[key] = max(worst[key], (g[key].cpu() - c[key]).abs().max().item())
+        worst["canvas"] = max(worst["canvas"], (g["canvas_masks"].cpu() != c["canvas_masks"])
+                              .float().mean().item())
+    log(f"small f32 cfm_detect (2 images x 40 segments), card vs CPU: selections identical; "
+        f"max abs diff {worst} (tolerances boxes 1e-2, scores 1e-4, masks 1e-3, canvas pixel "
+        "share 1e-3)")
+    if (worst["boxes"] > 1e-2 or worst["scores"] > 1e-4 or worst["masks"] > 1e-3
+            or worst["canvas"] > 1e-3):
+        raise AssertionError("small cfm_detect: card and CPU disagree beyond tolerance")
+
+
+def small_cfm_train_step_agrees():
+    """One CFM train step of a small f32 model (blocks unfrozen) on the card
+    against the CPU on the same draws: sampled RoIs and labels identical,
+    losses 1e-4 relative, gradients 1e-3 (RPN and heads) and 0.15 (trunk)
+    of each leaf's max (small_train_step_agrees' tolerances and reasons)."""
+    from mnc_tpu_torch.data.synthetic import SyntheticShapes
+    from mnc_tpu_torch.models import cfm
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.train import targets as T
+    from mnc_tpu_torch.train.loop import CfmDraws, draw_cfm_randoms
+
+    arch = MNCArch(**dict(CFM_SMALL, canvas=(128, 160), trunk_frozen=0))
+    train_cfg = dict(BATCH_SIZE=32, FG_FRACTION=0.25, FG_THRESH=0.5, BG_THRESH_HI=0.5,
+                     BG_THRESH_LO=0.0)
+    data = SyntheticShapes(canvas_hw=arch.canvas, num_classes=4, max_gt=4, gt_mask_size=16,
+                           n_range=(1, 3), seed=7)
+    batch = {k: torch.from_numpy(v) for k, v in data.batch([0, 1]).items()}
+    rs = np.random.RandomState(8)
+    segs = [_cfm_small_segments(rs, 24, 20, arch.canvas) for _ in range(2)]
+    for i in range(2):  # half the segments jitter around the gt boxes
+        gt = batch["gt_boxes"][i][batch["gt_valid"][i]].numpy()
+        segs[i][0][:12] = gt[rs.randint(0, len(gt), 12)] + rs.uniform(-4, 4, (12, 4))
+    for j, key in enumerate(("seg_boxes", "seg_masks", "seg_valid")):
+        batch[key] = torch.from_numpy(np.stack([s[j] for s in segs]))
+    draws = draw_cfm_randoms(torch.Generator().manual_seed(9), arch, train_cfg, 2, 24, 4)
+    picked, res = {}, {}
+    orig = T.cfm_targets
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        picked.setdefault(out.rois.device.type, []).append((out.rois.cpu(), out.labels.cpu()))
+        return out
+
+    T.cfm_targets = spy
+    try:
+        for dev in ("cuda", "cpu"):
+            model = MNC(arch, device=dev, seed=3, train=True)
+            d = CfmDraws(*(tuple(x.to(dev) for x in f) for f in draws))
+            total, losses = cfm.cfm_loss(model, {k: v.to(dev) for k, v in batch.items()}, d,
+                                         arch, train_cfg)
+            total.backward()
+            res[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                        {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.grad is not None})
+    finally:
+        T.cfm_targets = orig
+    for (gr, gl), (cr, cl) in zip(picked["cuda"], picked["cpu"]):
+        if not (torch.equal(gl, cl) and torch.equal(gr, cr)):
+            raise AssertionError("small cfm train step: sampled RoIs or labels differ")
+    if set(res["cuda"][1]) != set(res["cpu"][1]):
+        raise AssertionError("small cfm train step: different parameters got gradients")
+    loss_err = max(abs(res["cuda"][0][k] - v) / max(abs(v), 1e-6)
+                   for k, v in res["cpu"][0].items())
+    errs = {"trunk": 0.0, "heads": 0.0}
+    for n, g in res["cpu"][1].items():
+        err = ((res["cuda"][1][n] - g).abs().max() / g.abs().max().clamp_min(1e-12)).item()
+        part = "trunk" if n.startswith("trunk.") else "heads"
+        errs[part] = max(errs[part], err)
+    log(f"small f32 CFM train step, card vs CPU: sampled RoIs and labels identical; max "
+        f"relative loss diff {loss_err:.2e} (tolerance 1e-4); max gradient diff relative to "
+        f"each leaf's max: heads {errs['heads']:.2e} (tolerance 1e-3), trunk "
+        f"{errs['trunk']:.2e} (tolerance 0.15)")
+    if loss_err > 1e-4 or errs["heads"] > 1e-3 or errs["trunk"] > 0.15:
+        raise AssertionError("small cfm train step: card and CPU disagree beyond tolerance")
+
+
+def test_net_segdb_agrees(tmp):
+    """The port's ``test_net --segdb`` on synthetic_8 with its gt as the
+    segdb (a small f32 model), on the card and on the CPU: the same AP
+    table."""
+    import io
+    import pickle
+
+    from mnc_tpu_torch.data.synth_imdb import SyntheticIMDB
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.tools import test_net
+    from mnc_tpu_torch.utils.checkpoint import jax_params_from_state_dict, save_npz
+
+    segdb = os.path.join(tmp, "oracle_segdb")
+    os.makedirs(segdb)
+    imdb = SyntheticIMDB(num_images=8)
+    for i, (entry, masks) in enumerate(zip(imdb.roidb(), imdb.maskdb())):
+        with open(os.path.join(segdb, f"{i}.pkl"), "wb") as f:
+            pickle.dump({"index": i, "boxes": entry["boxes"], "masks": masks["masks"]}, f)
+    small = ["NET.FC_DIM", "64", "NET.MASK_FC_DIM", "32", "NET.COMPUTE_DTYPE", "float32"]
+    arch = MNCArch(canvas=(128, 160), num_classes=6, anchor_scales=(2, 4, 8), rpn_min_size=4.0,
+                   fc_dim=64, mask_fc_dim=32, compute_dtype=torch.float32)
+    npz = os.path.join(tmp, "cfm_small.npz")
+    save_npz(npz, jax_params_from_state_dict(MNC(arch, device="cpu", seed=2).state_dict()),
+             {"bbox_pred_normalized": True})
+    tables = {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with cfg_restored(), contextlib.redirect_stdout(buf):
+            test_net.main(["--imdb", "synthetic_8", "--npz", npz, "--device", dev, "--segdb",
+                           segdb, "--set", *small])
+        lines = buf.getvalue().splitlines()
+        start = next(i for i, ln in enumerate(lines) if ln.startswith("~~~~~~"))
+        tables[dev] = "\n".join(lines[start:])
+        log(f"test_net --segdb synthetic_8 on {dev}: {time.perf_counter() - t0:.1f} s; "
+            f"{lines[-1]}")
+    if tables["cuda"] != tables["cpu"]:
+        raise AssertionError("test_net --segdb: the AP tables of the card and the CPU differ:\n"
+                             + tables["cuda"] + "\n---\n" + tables["cpu"])
+    log("test_net --segdb synthetic_8: the AP tables of the card and the CPU are identical")
+
+
 CHECKS = {"roi_warp": check_roi_warp, "roi_warp_bwd": check_roi_warp_bwd, "nms": check_nms,
           "paste_binarize": check_paste, "block1": check_block1}
 
@@ -1619,6 +2034,17 @@ def main(argv=None) -> int:
         return 0
 
     # phase 4: the main paths
+    by_path = main_paths(g, smi)
+    report_kernels(results, by_path, t_start)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_paths(g, smi) -> dict:
+    """Phase 4: each main path with the launch counters zeroed just before
+    it and read just after; returns the counts by path."""
     from mnc_tpu_torch.models.mnc import MNCArch
 
     label = f"{torch.cuda.get_device_name(0)} ({smi})"
@@ -1662,7 +2088,22 @@ def main(argv=None) -> int:
         small_detect_many_agrees()
         test_net_agrees(tmp)
 
-    # phase 5: report
+        # phase 4h: the CFM model family
+        imdb = cfm_imdb()
+        segdb = cfm_segdb(tmp, imdb)
+        by_path["cfm_serve"] = cfm_serve_path(label, vgg, imdb, segdb)
+        torch.cuda.empty_cache()
+        by_path["cfm_train"] = cfm_train_path(label, imdb, segdb)
+        torch.cuda.empty_cache()
+        small_cfm_detect_agrees()
+        small_cfm_train_step_agrees()
+        test_net_segdb_agrees(tmp)
+    return by_path
+
+
+def report_kernels(results, by_path, t_start) -> None:
+    """Phase 5: every kernel launched on each path that must launch it;
+    the ``kernels`` JSON line."""
     meta = {
         "roi_warp": ("roi_warp_cuda", "mnc_tpu_torch/csrc/roi_warp.cu",
                      "mnc_tpu/ops/pallas/roi_warp_kernel.py:142"),
@@ -1679,8 +2120,10 @@ def main(argv=None) -> int:
     serving = ("serve", "serve_resnet101_conv5", "serve_resnet101_fc")
     training = ("train", "train_resnet101_conv5")
     serving += ("detect_many", "serve_http", "serve_http_single", "exported")
-    must = {"roi_warp": serving + training, "roi_warp_bwd": training,
-            "nms": serving + training, "paste_binarize": serving,
+    must = {"roi_warp": serving + training + ("cfm_serve", "cfm_train"),
+            "roi_warp_bwd": training + ("cfm_train",),
+            "nms": serving + training + ("cfm_serve",),
+            "paste_binarize": serving + ("cfm_serve",),
             "block1": ("train_fused_block1",)}
     report = []
     for name, (wrapper, source, replaces) in meta.items():
@@ -1693,10 +2136,6 @@ def main(argv=None) -> int:
                            **results[name]))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": report}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -7,14 +7,18 @@ prints mAP^r @0.5/0.7 with the reference-style per-class AP table.
     python3 -m mnc_tpu_torch.tools.test_net --imdb synthetic_16 \\
         [--npz PATH | --ckpt DIR | --caffemodel PATH [--remap OLD=NEW ...]] [--stages 5] \\
         [--cfg FILE] [--set KEY VAL ...] [--conf 0.0] [--eval-batch N] \\
-        [--cache out.pkl] [--coco-ap] [--device cpu]
+        [--cache out.pkl] [--coco-ap] [--segdb DIR [--seg-top-k 300]] [--device cpu]
 
 ``--npz`` reads a ``save_npz`` export or the port's ``train_net`` state;
 ``--ckpt`` a step directory of ``train_net`` or the newest one under a run
-directory.  It runs on the GPU unless ``--device cpu`` is given, and raises
-without one.  The port knows the synthetic imdbs only (``synthetic[_<n>]``,
-whose images are canvases already); the JAX tool's ``--dp`` and ``--segdb``
-(CFM) are not ported.
+directory.  ``--segdb DIR`` evaluates in CFM mode (``models/cfm.py``): each
+image's top ``--seg-top-k`` precomputed segment proposals (the records of
+``tools.prepare_mcg_maskdb``, in image coordinates) are classified by the
+trunk and the classify head instead of running the RPN, one image at a
+time (``cfm_detect``).  It runs on the GPU unless ``--device cpu`` is
+given, and raises without one.  The port knows the synthetic imdbs only
+(``synthetic[_<n>]``, whose images are canvases already); the JAX tool's
+``--dp`` is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ def parse_args(argv=None):
     ap.add_argument("--set", dest="set_cfgs", nargs="*", default=None)
     ap.add_argument("--conf", type=float, default=0.0)
     ap.add_argument("--cache", default=None, help="pickle path for raw detections")
+    ap.add_argument("--segdb", default=None,
+                    help="CFM mode: dir of per-image segment-proposal pkls "
+                         "(mnc_tpu_torch.tools.prepare_mcg_maskdb)")
+    ap.add_argument("--seg-top-k", type=int, default=300,
+                    help="--segdb: segment proposals per image (padded)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -77,9 +86,11 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     import numpy as np
 
-    from mnc_tpu_torch.config import cfg_from_file, cfg_from_list
+    from mnc_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
     from mnc_tpu_torch.data.eval_sds import collect_detections, print_ap_table
     from mnc_tpu_torch.data.imdb import get_imdb
+    from mnc_tpu_torch.data.loader import load_segments
+    from mnc_tpu_torch.models.cfm import cfm_detect
     from mnc_tpu_torch.models.mnc import MNCArch
     from mnc_tpu_torch.pipeline.inference import PostCfg, unpack_canvas_masks
     from mnc_tpu_torch.utils.checkpoint import checkpoint_npz
@@ -126,6 +137,16 @@ def main(argv=None) -> int:
     else:
         for n, i in enumerate(imdb.image_index):
             ex = imdb.example(i)
+            if args.segdb:
+                boxes, masks, valid, _ = load_segments(args.segdb, i, args.seg_top_k,
+                                                       cfg.MASK_SIZE)
+                boxes = boxes * float(ex["im_info"][2])  # segdb boxes are image coordinates
+                timer.tic()
+                out = host(cfm_detect(pipe.model, ex["image"], ex["im_info"], boxes, masks,
+                                      valid, pipe.post))
+                timer.toc()
+                detections.extend(collect_detections(out, i, args.conf))
+                continue
             if args.eval_batch > 1:
                 pending.append((i, ex["image"], ex["im_info"]))
                 if len(pending) == args.eval_batch or n == imdb.num_images - 1:

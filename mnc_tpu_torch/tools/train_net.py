@@ -3,7 +3,8 @@
 
     python3 -m mnc_tpu_torch.tools.train_net --imdb synthetic_64 --iters 100 \\
         [--cfg experiments/cfgs/x.yml] [--set KEY VAL ...] [--out DIR] \\
-        [--ims-per-batch N] [--seed S] [--device cpu]
+        [--ims-per-batch N] [--seed S] [--device cpu] \\
+        [--segdb DIR [--seg-top-k 64]]
 
 Builds the architecture with ``MNCArch.from_cfg(train=True)`` and the
 synthetic overrides (the imdb's canvas and classes, small anchors), the
@@ -13,11 +14,19 @@ solver from ``cfg.TRAIN.*``, writes every step's metrics to
 ``TRAIN.SNAPSHOT_ITERS`` steps and at the end into ``<out>/ckpt_<step>/``
 (the newest 5 kept; ``utils.checkpoint.save_checkpoint``; the final state
 is ``<out>/ckpt_<iters>/train_state.npz``) and resumes from the newest
-snapshot under ``<out>``.  Each step draws its images and its random
-numbers from generators seeded by (seed, step), so a resumed run takes the
-same steps as one that was not interrupted.  It runs on the GPU unless
-``--device cpu`` is given, and raises without one.  Real-data imdbs and
-``TrainLoader`` (flipping, scaling) are not ported.
+snapshot under ``<out>``.  It runs on the GPU unless ``--device cpu`` is
+given, and raises without one.
+
+The MNC path draws each step's images and random numbers from generators
+seeded by (seed, step), so a resumed run takes the same steps as one that
+was not interrupted.  ``--segdb DIR`` trains the CFM model instead
+(``models/cfm.py``: the trunk and the classify head on the precomputed
+segment proposals of ``tools.prepare_mcg_maskdb``, no RPN or mask-head
+loss): the images come from ``data.loader.TrainLoader`` (the JAX package's
+shuffled, flip-augmented order from the seed, with each image's top
+``--seg-top-k`` segments), which a resumed run advances past the steps
+already taken; the random numbers are seeded by (seed, step) as above.
+Real-data imdbs are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +50,11 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--gt-mask-size", type=int, default=28)
     ap.add_argument("--print-every", type=int, default=20)
+    ap.add_argument("--segdb", default=None,
+                    help="CFM training: dir of per-image segment-proposal pkls "
+                         "(mnc_tpu_torch.tools.prepare_mcg_maskdb)")
+    ap.add_argument("--seg-top-k", type=int, default=64,
+                    help="--segdb: segment proposals kept per image (padded)")
     return ap.parse_args(argv)
 
 
@@ -49,7 +63,10 @@ def main(argv=None) -> int:
     import torch
 
     from mnc_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
+    from mnc_tpu_torch.data.imdb import get_imdb
+    from mnc_tpu_torch.data.loader import TrainLoader
     from mnc_tpu_torch.data.synthetic import SyntheticShapes
+    from mnc_tpu_torch.models.cfm import make_cfm_train_step
     from mnc_tpu_torch.models.mnc import MNC, MNCArch
     from mnc_tpu_torch.train.loop import TrainState, make_train_step, train_cfg_from_cfg
     from mnc_tpu_torch.train.optim import make_optimizer
@@ -78,7 +95,7 @@ def main(argv=None) -> int:
         weight_decay=cfg.TRAIN.WEIGHT_DECAY, gamma=cfg.TRAIN.GAMMA,
         stepsize=cfg.TRAIN.STEPSIZE, iter_size=cfg.TRAIN.ITER_SIZE,
         clip_gradients=cfg.TRAIN.CLIP_GRADIENTS)
-    step_fn = make_train_step(model, opt, arch, train_cfg_from_cfg(cfg))
+    train_cfg = train_cfg_from_cfg(cfg)
     out_dir = args.out or os.path.join("output", args.imdb)
     state, start = restore_latest(out_dir, TrainState.create(model, opt))
     if start:
@@ -86,24 +103,43 @@ def main(argv=None) -> int:
 
     ims = args.ims_per_batch or cfg.TRAIN.IMS_PER_BATCH
     max_iters = args.iters or cfg.TRAIN.MAX_ITERS
+    if args.segdb:
+        step_fn = make_cfm_train_step(model, opt, arch, dict(train_cfg,
+                                                             CFM_IOU=cfg.TRAIN.CFM_IOU))
+        loader = TrainLoader(get_imdb(args.imdb), canvas_hw=arch.canvas, ims_per_batch=ims,
+                             gt_mask_size=args.gt_mask_size, seed=seed,
+                             segdb_dir=args.segdb, seg_top_k=args.seg_top_k)
+        loader.skip(start * ims)  # the examples of the steps already taken
+        print(f"CFM training on segment proposals from {args.segdb} (top {args.seg_top_k} "
+              "per image; no RPN or mask-head losses)", flush=True)
+    else:
+        step_fn = make_train_step(model, opt, arch, train_cfg)
+        order = torch.Generator()
     gen = torch.Generator(device=device)
-    order = torch.Generator()
     print(f"training on {device} ({arch.n_stages}-stage, canvas {arch.canvas}, "
           f"{ims} image(s) per step, {max_iters} iters)", flush=True)
     logger = MetricsLogger(os.path.join(out_dir, "train_metrics.jsonl"), args.print_every)
     t0 = time.perf_counter()
-    for it in range(start, max_iters):
-        step_seed = int(np.random.SeedSequence([seed, it]).generate_state(1)[0])
-        order.manual_seed(step_seed)
-        gen.manual_seed(step_seed)
-        idx = torch.randint(0, n_images, (ims,), generator=order).tolist()
-        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(idx).items()}
-        lr = opt.lr
-        state, metrics = step_fn(state, batch, gen)
-        logger.log(it + 1, {k: float(v) for k, v in metrics.items()}, lr=lr)
-        if (it + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0 or it + 1 == max_iters:
-            print(f"snapshot → {save_checkpoint(out_dir, state, step=it + 1)}", flush=True)
-    logger.close()
+    try:
+        for it in range(start, max_iters):
+            step_seed = int(np.random.SeedSequence([seed, it]).generate_state(1)[0])
+            gen.manual_seed(step_seed)
+            if args.segdb:
+                host = next(loader)
+            else:
+                order.manual_seed(step_seed)
+                host = data.batch(torch.randint(0, n_images, (ims,), generator=order).tolist())
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for k, v in host.items()}
+            lr = opt.lr
+            state, metrics = step_fn(state, batch, gen)
+            logger.log(it + 1, {k: float(v) for k, v in metrics.items()}, lr=lr)
+            if (it + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0 or it + 1 == max_iters:
+                print(f"snapshot → {save_checkpoint(out_dir, state, step=it + 1)}", flush=True)
+    finally:
+        if args.segdb:
+            loader.close()
+        logger.close()
     if device.type == "cuda":
         torch.cuda.synchronize()
     n = max(max_iters - start, 1)

@@ -69,6 +69,30 @@ def draw_step_randoms(gen: torch.Generator, arch: MNCArch, train_cfg: dict, n_im
                      (keep(), keep()), (keep(), keep()))
 
 
+class CfmDraws(NamedTuple):
+    """The random numbers of one CFM step (``models/cfm.py``), with a
+    leading image axis B."""
+
+    roi: tuple  # 2 × (B, pool) uniforms: ranks of fg / bg segments
+    drop: tuple  # 2 × (B, R, fc_dim) bool keep-masks after fc6 / fc7
+
+
+def draw_cfm_randoms(gen: torch.Generator, arch: MNCArch, train_cfg: dict, n_images: int,
+                     n_segments: int, max_gt: int, device=None,
+                     keep_prob: float = 0.5) -> CfmDraws:
+    """All of a CFM step's random numbers from ``gen`` (whose device is the
+    default for ``device``)."""
+    device = gen.device if device is None else device
+    r = train_cfg["BATCH_SIZE"]
+    pool = T.cfm_pool_size(n_segments, max_gt, r)
+
+    def uni(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    return CfmDraws((uni(n_images, pool), uni(n_images, pool)),
+                    tuple(uni(n_images, r, arch.fc_dim) < keep_prob for _ in range(2)))
+
+
 @dataclasses.dataclass
 class TrainState:
     """What a step advances: the model's parameters and the solver's state
@@ -101,28 +125,39 @@ def _roi_losses(model: MNC, feat: torch.Tensor, tgt: T.RoiTargets, keep_masks, a
     mask_logits = mask_logits.reshape(b, r, *mask_logits.shape[1:])
     cls_logits = cls_logits.reshape(b, r, -1)
     bbox_pred = bbox_pred.reshape(b, r, -1)
+    mask_l = torch.stack([sigmoid_cross_entropy(mask_logits[i], tgt.mask_targets[i],
+                                                tgt.mask_weight[i][:, None, None])
+                          for i in range(b)])
+    cls_l, bbox_l = cls_bbox_losses(cls_logits, bbox_pred, tgt.labels, tgt.bbox_targets,
+                                    tgt.bbox_weight, arch, bbox_inside_weights, bbox_reg)
+    losses = {f"{prefix}_mask": mask_l, f"{prefix}_cls": cls_l, f"{prefix}_bbox": bbox_l}
+    return losses, (cls_logits, bbox_pred, mask_logits)
 
-    # per-class box regression: the label's 4-vector out of (R, 4C)
+
+def cls_bbox_losses(cls_logits: torch.Tensor, bbox_pred: torch.Tensor, labels: torch.Tensor,
+                    bbox_targets: torch.Tensor, bbox_weight: torch.Tensor, arch: MNCArch,
+                    bbox_inside_weights=_ONES4, bbox_reg: bool = True):
+    """The classify head's losses over sampled RoIs with (B, R, ...) fields:
+    softmax cross entropy (ignore -1) and the SmoothL1 of the label's
+    4-vector out of (R, 4C), weighted by ``bbox_weight`` and normalized by
+    the image's count of non-ignored RoIs.  Returns two (B,) per-image
+    losses; with ``bbox_reg`` off (``TRAIN.BBOX_REG``) the second is 0."""
+    b, r = labels.shape
     per_cls = bbox_pred.reshape(b, r, arch.num_classes, 4)
-    lbl = tgt.labels.clamp_min(0).long()
+    lbl = labels.clamp_min(0).long()
     sel = torch.gather(per_cls, 2, lbl[..., None, None].expand(b, r, 1, 4)).squeeze(2)
     inside = sel.new_tensor(bbox_inside_weights)
-    mask_l, cls_l, bbox_l = [], [], []
+    cls_l, bbox_l = [], []
     for i in range(b):
-        mask_l.append(sigmoid_cross_entropy(mask_logits[i], tgt.mask_targets[i],
-                                            tgt.mask_weight[i][:, None, None]))
-        cls_l.append(softmax_cross_entropy(cls_logits[i], tgt.labels[i], ignore_label=-1))
+        cls_l.append(softmax_cross_entropy(cls_logits[i], labels[i], ignore_label=-1))
         if bbox_reg:
-            n_valid = torch.maximum((tgt.labels[i] >= 0).float().sum(), sel.new_ones(()))
-            w = tgt.bbox_weight[i][:, None]
-            bbox_l.append(smooth_l1_loss(sel[i], tgt.bbox_targets[i],
-                                         inside_weights=w * inside,
+            n_valid = torch.maximum((labels[i] >= 0).float().sum(), sel.new_ones(()))
+            w = bbox_weight[i][:, None]
+            bbox_l.append(smooth_l1_loss(sel[i], bbox_targets[i], inside_weights=w * inside,
                                          outside_weights=(w / n_valid).expand(r, 4)))
-        else:  # TRAIN.BBOX_REG False: no box-regression training signal
+        else:
             bbox_l.append(sel.new_zeros(()))
-    losses = {f"{prefix}_mask": torch.stack(mask_l), f"{prefix}_cls": torch.stack(cls_l),
-              f"{prefix}_bbox": torch.stack(bbox_l)}
-    return losses, (cls_logits, bbox_pred, mask_logits)
+    return torch.stack(cls_l), torch.stack(bbox_l)
 
 
 def mnc_loss(model: MNC, batch: dict, draws: StepDraws, arch: MNCArch,

@@ -12,6 +12,9 @@ Fixed-shape, masked forms of the reference's dynamic-shape Python layers:
 - :func:`reassign_targets` ≙ the target half of
   ``lib/pylayer/stage_bridge_layer.py`` — recompute the targets of the
   bridge-refined RoIs for the second pass (no re-sampling).
+- :func:`cfm_targets` — the same sampling over a pool of precomputed
+  segment proposals (the CFM path, ``models/cfm.py``), labelled by box IoU
+  or, with ``iou_mode="mask"``, by mask IoU (:func:`_assign_mask_iou`).
 
 Each works on ONE image (the train step loops over the images of a batch,
 so every image keeps its own draws).  Random subsampling ranks uniform
@@ -20,8 +23,7 @@ can feed the JAX package's own draws and get its selections.  Every
 selection breaks ties to the lower index (stable sorts, a first-index
 argmax), on the card as on the CPU.  As in the JAX package the box targets
 are differentiable functions of the sampled RoIs (no ``detach``); the mask
-targets are binarized and carry no gradient.  ``cfm_targets`` is not ported
-yet.
+targets are binarized and carry no gradient.
 """
 
 from __future__ import annotations
@@ -227,3 +229,104 @@ def reassign_targets(rois: torch.Tensor, prev_labels: torch.Tensor, gt_boxes: to
     m_targets = intersect_mask(rois.detach(), mboxes, gt_masks[arg], mask_size)
     m_targets = torch.where(fg[:, None, None], m_targets, zero)
     return RoiTargets(rois, labels, bbox_targets, w, m_targets, w)
+
+
+def _assign_mask_iou(rois, roi_masks, gt_boxes, gt_classes, gt_valid, gt_masks, fg_thresh):
+    """:func:`_assign` by MASK IoU (``TRAIN.CFM_IOU "mask"``): each proposal
+    carries its own (S, S) mask in its box frame.  The IoU with each gt
+    instance is counted in image pixels: areas are the binary mask's
+    fraction times the box area (+1 convention), the intersection resamples
+    the gt mask into the proposal's frame (``intersect_mask``, all gt at
+    once)."""
+    s = roi_masks.shape[-1]
+    n, g = rois.shape[0], gt_boxes.shape[0]
+
+    def area(boxes):
+        return (boxes[..., 2] - boxes[..., 0] + 1.0) * (boxes[..., 3] - boxes[..., 1] + 1.0)
+
+    rbin = roi_masks > 0.5
+    roi_px = rbin.float().mean(dim=(-2, -1)) * area(rois)  # (N,)
+    gt_px = (gt_masks > 0.5).float().mean(dim=(-2, -1)) * area(gt_boxes)  # (G,)
+    proj = intersect_mask(rois.expand(g, n, 4), gt_boxes[:, None].expand(g, n, 4),
+                          gt_masks[:, None].expand(g, n, *gt_masks.shape[-2:]), s)
+    inter = ((rbin & (proj > 0.5)).float().mean(dim=(-2, -1)) * area(rois)).T  # (N, G)
+    union = roi_px[:, None] + gt_px[None, :] - inter
+    overlaps = inter / torch.clamp_min(union, 1.0)
+    overlaps = torch.where(gt_valid[None, :], overlaps, overlaps.new_zeros(()))
+    max_ov = overlaps.max(dim=1).values
+    arg = first_argmax(overlaps)
+    return max_ov, arg, gt_boxes[arg], gt_classes[arg], max_ov >= fg_thresh
+
+
+class CfmTargets(NamedTuple):
+    rois: torch.Tensor  # (R, 4) sampled segment boxes
+    labels: torch.Tensor  # (R,) int32 in {-1 pad, 0 bg, 1..C-1 fg class}
+    bbox_targets: torch.Tensor  # (R, 4) normalized deltas to the matched gt
+    bbox_weight: torch.Tensor  # (R,) 1.0 for fg
+    seg_masks: torch.Tensor  # (R, S, S) each sample's OWN segment mask (an input)
+
+
+def cfm_targets(seg_boxes: torch.Tensor, seg_masks: torch.Tensor, seg_valid: torch.Tensor,
+                gt_boxes: torch.Tensor, gt_classes: torch.Tensor, gt_valid: torch.Tensor,
+                gt_masks: torch.Tensor, draws, roi_batch: int = 128,
+                fg_fraction: float = 0.25, fg_thresh: float = 0.5,
+                bg_thresh_hi: float = 0.5, bg_thresh_lo: float = 0.0,
+                bbox_means=(0.0, 0.0, 0.0, 0.0), bbox_stds=(0.1, 0.1, 0.2, 0.2),
+                iou_mode: str = "box") -> CfmTargets:
+    """The CFM training sample: :func:`proposal_targets`' rules over a pool
+    of PRECOMPUTED segment proposals (K boxes, each with its (S, S) mask in
+    its box frame) instead of RPN proposals.
+
+    The gt instances join the pool, each with its own mask resampled into
+    its box frame at S; when the pool (K + G) is smaller than ``roi_batch``
+    it is padded with invalid zero boxes and masks.  fg: IoU >= fg_thresh,
+    labelled with the matched gt's class; bg: IoU in [bg_thresh_lo,
+    bg_thresh_hi); a fixed fg quota, then bg fill; normalized box deltas.
+    IoU is box IoU, or mask IoU with ``iou_mode="mask"``.  There are no mask
+    targets: the segment's own mask rides along as the mask-pooling input.
+    ``draws`` is the pair of (pool size,) uniform tensors that rank the fg
+    and the bg candidates (see :func:`cfm_pool_size`).
+    """
+    r_fg, r_bg = draws
+    s = seg_masks.shape[-1]
+    gt_self_masks = intersect_mask(gt_boxes, gt_boxes, gt_masks, s)
+    all_rois = torch.cat([seg_boxes, gt_boxes], dim=0)
+    all_masks = torch.cat([seg_masks.float(), gt_self_masks], dim=0)
+    all_valid = torch.cat([seg_valid, gt_valid], dim=0)
+    if all_rois.shape[0] < roi_batch:  # a small pool (the default K + MAX_GT): pad it
+        pad = roi_batch - all_rois.shape[0]
+        all_rois = torch.cat([all_rois, all_rois.new_zeros(pad, 4)], dim=0)
+        all_masks = torch.cat([all_masks, all_masks.new_zeros(pad, s, s)], dim=0)
+        all_valid = torch.cat([all_valid, all_valid.new_zeros(pad)], dim=0)
+
+    if iou_mode == "mask":
+        max_ov, arg, mboxes, mcls, fg = _assign_mask_iou(
+            all_rois, all_masks, gt_boxes, gt_classes, gt_valid, gt_masks, fg_thresh)
+    else:
+        max_ov, arg, mboxes, mcls, fg = _assign(all_rois, gt_boxes, gt_classes, gt_valid,
+                                                fg_thresh)
+    fg = fg & all_valid
+    bg = all_valid & (max_ov < bg_thresh_hi) & (max_ov >= bg_thresh_lo) & ~fg
+
+    fg_quota = int(round(roi_batch * fg_fraction))
+    fg_keep = _random_keep(r_fg, fg, fg_quota, fg_quota)
+    bg_keep = _random_keep(r_bg, bg, roi_batch - fg_keep.sum(), roi_batch)
+
+    # fg, then bg, then the rest, each in index order
+    sel_key = fg_keep.to(torch.int8) * 2 + bg_keep.to(torch.int8)
+    idx = torch.sort(sel_key, descending=True, stable=True).indices[:roi_batch]
+    picked_fg = fg_keep[idx]
+    picked_bg = bg_keep[idx]
+
+    s_rois = all_rois[idx]
+    labels = torch.where(picked_fg, mcls[idx].to(torch.int32),
+                         torch.where(picked_bg, 0, -1).to(torch.int32))
+    deltas = _normalized_deltas(s_rois, mboxes[idx], bbox_means, bbox_stds)
+    bbox_targets = torch.where(picked_fg[:, None], deltas, s_rois.new_zeros(()))
+    return CfmTargets(s_rois, labels, bbox_targets, picked_fg.to(torch.float32),
+                      all_masks[idx])
+
+
+def cfm_pool_size(n_segments: int, n_gt: int, roi_batch: int) -> int:
+    """Length of each of :func:`cfm_targets`' two draw tensors."""
+    return max(n_segments + n_gt, roi_batch)

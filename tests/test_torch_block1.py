@@ -24,6 +24,7 @@ from mnc_tpu_torch.ops.block1 import (CHANNEL_OF_COLUMN, block1_plain, block1_to
                                       conv_relu_plain, fused_block1, pack_block1_weights,
                                       packed_block1_weights)
 from mnc_tpu_torch.utils.checkpoint import state_dict_from_jax
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 BF16_ULP = 2.0 ** -7
 

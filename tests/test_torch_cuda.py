@@ -22,6 +22,7 @@ from mnc_tpu_torch import kernels
 from mnc_tpu_torch.ops.masks import _paste_axis_weights, paste_binarize_plain
 from mnc_tpu_torch.ops.nms import nms_keep_plain
 from mnc_tpu_torch.ops.roi_warp import roi_warp_plain
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 pytestmark = pytest.mark.cuda
 

@@ -28,6 +28,7 @@ from mnc_tpu_torch import config as pconfig
 from mnc_tpu_torch.data import eval_sds as peval
 from mnc_tpu_torch.data.imdb import get_imdb
 from mnc_tpu_torch.data.synth_imdb import SyntheticIMDB
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 
 def _blob_mask(h, w, y1, y2, x1, x2):

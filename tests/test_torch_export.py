@@ -36,6 +36,7 @@ from mnc_tpu_torch.ops.roi_warp import roi_warp_op
 from mnc_tpu_torch.pipeline.export import (ExportedPipeline, deserialize_inference,
                                            export_inference, exported_meta, save_exported)
 from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
@@ -141,7 +142,10 @@ def test_saved_artifact_runs_in_a_fresh_interpreter_without_model_code(small, tm
     path, inputs, outputs = (str(tmp_path / n) for n in ("b2.pt2", "in.pt", "out.pt"))
     save_exported(path, blobs[2])
     torch.save({"imgs": torch.from_numpy(imgs), "infos": torch.from_numpy(infos)}, inputs)
+    # the same intra-op thread count as this process: torch's CPU convolutions
+    # sum in an order that depends on it, and the outputs are held bit for bit
     code = ("import sys, torch\n"
+            f"torch.set_num_threads({torch.get_num_threads()})\n"
             "from mnc_tpu_torch.pipeline.export import load_exported\n"
             "fn = load_exported(sys.argv[1])\n"
             "inp = torch.load(sys.argv[2])\n"

@@ -19,6 +19,7 @@ from mnc_tpu.ops import anchors as j_anchors, bbox as j_bbox
 from mnc_tpu_torch.models.mnc import MNCArch, stage_bridge
 from mnc_tpu_torch.ops import anchors, bbox
 from tests.conftest import random_boxes
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 

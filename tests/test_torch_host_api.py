@@ -33,6 +33,7 @@ from mnc_tpu_torch.models.mnc import MNC, MNCArch
 from mnc_tpu_torch.pipeline import inference as pinf
 from mnc_tpu_torch.utils import blob
 from mnc_tpu_torch.utils.checkpoint import load_npz, state_dict_from_jax
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 SMALL = dict(canvas=(64, 96), anchor_scales=(1, 2, 4), num_classes=4, mask_size=9,
              warp_hw=4, n_stages=3, fc_dim=32, mask_fc_dim=16, pre_nms_top_n=32,

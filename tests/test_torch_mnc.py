@@ -26,6 +26,7 @@ from mnc_tpu.utils.checkpoint import save_npz
 from mnc_tpu_torch.models.mnc import MNC, MNCArch, linear_resize_matrix, propose_rois
 from mnc_tpu_torch.utils.blob import device_normalize
 from mnc_tpu_torch.utils.checkpoint import load_npz, state_dict_from_jax
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 SMALL = dict(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,

@@ -17,6 +17,7 @@ from mnc_tpu import native as jnative
 from mnc_tpu.ops import nms_wrapper as j_nms_wrapper
 from mnc_tpu_torch import native
 from mnc_tpu_torch.ops import nms_wrapper
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 
 def _boxes(rs, n, size=100.0, span=60.0, clusters=0):

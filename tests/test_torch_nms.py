@@ -16,6 +16,7 @@ import torch
 from mnc_tpu.ops import nms as jnms
 from mnc_tpu_torch.ops import nms
 from tests.conftest import random_boxes
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 

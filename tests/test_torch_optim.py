@@ -18,6 +18,7 @@ import torch
 from mnc_tpu.train.optim import make_optimizer as j_make_optimizer
 from mnc_tpu_torch.train.optim import CaffeSGD, step_lr
 from mnc_tpu_torch.utils.checkpoint import jax_params_from_state_dict, state_dict_from_jax
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 SHAPES = {"trunk": {"conv1_1": ((3, 3, 3, 4), (4,)), "conv3_1": ((3, 3, 4, 6), (6,))},
           "classify_head": {"fc6": ((8, 5), (5,)), "bbox_pred": ((5, 8), (8,))}}

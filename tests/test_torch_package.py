@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import mnc_tpu_torch
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,7 +38,8 @@ def test_port_imports_no_jax_and_no_mnc_tpu():
             "mnc_tpu_torch.utils.blob", "mnc_tpu_torch.data.eval_sds",
             "mnc_tpu_torch.data.synth_imdb", "mnc_tpu_torch.tools.test_net",
             "mnc_tpu_torch.tools.demo", "mnc_tpu_torch.tools.fabricate_caffemodel",
-            "mnc_tpu_torch.utils.vis"} <= set(mods)
+            "mnc_tpu_torch.utils.vis", "mnc_tpu_torch.models.cfm", "mnc_tpu_torch.data.loader",
+            "mnc_tpu_torch.tools.prepare_mcg_maskdb"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -22,6 +22,7 @@ from mnc_tpu.ops.masks import paste_masks as j_paste_masks
 from mnc_tpu.ops.pallas.paste_kernel import paste_binarize_pallas
 from mnc_tpu_torch.ops import mask_voting as mv
 from mnc_tpu_torch.ops.masks import _paste_axis_weights, paste_binarize_plain, paste_masks
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 CANVAS = (96, 128)

@@ -18,6 +18,7 @@ order) and 1e-6 relative in f32; block, trunk and head outputs within 1e-5
 of the output's max; gradients within 1e-4 of each leaf's max (no ReLU
 unit of these sizes lies within rounding of 0: measured); the torchvision
 import within 1e-6.
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 """
 
 import functools

@@ -37,6 +37,7 @@ from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg, postprocess_d
 from mnc_tpu_torch.pipeline.inference import vote_candidates
 from mnc_tpu_torch.utils.checkpoint import state_dict_from_jax
 from tests.test_torch_resnet import SMALL, randomize_bn
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 POST = dict(dets_per_class=4, max_per_image=8)
 CASES = [(True, 5), (True, 3), (False, 5), (False, 3)]

@@ -18,6 +18,7 @@ from mnc_tpu.ops.roi_warp import _warp_einsum, bin_centers as j_bin_centers
 from mnc_tpu.ops.roi_warp import interp_matrix as j_interp_matrix
 from mnc_tpu_torch.ops.roi_warp import bin_centers, interp_matrix, roi_warp, roi_warp_plain
 from tests.conftest import random_boxes
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 H, W, C = 12, 16, 8
 SCALE = 1.0 / 4.0  # image 48x64 -> feature 12x16

@@ -19,6 +19,7 @@ import torch
 
 from mnc_tpu.ops.roi_warp import roi_warp as j_roi_warp
 from mnc_tpu_torch.ops.roi_warp import RoIWarpFunction, roi_warp, roi_warp_plain
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 H, W, C = 12, 16, 8
 SCALE = 1.0 / 4.0  # image 48x64 -> feature 12x16

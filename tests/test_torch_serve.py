@@ -45,6 +45,7 @@ from mnc_tpu_torch.tools import export_model, serve, test_net, train_net
 from mnc_tpu_torch.train.loop import TrainState
 from mnc_tpu_torch.train.optim import make_optimizer
 from mnc_tpu_torch.utils import checkpoint as ckpt
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 SET = ["STATIC.CANVAS", "(64, 96)", "NET.ANCHOR_SCALES", "(1, 2, 4)", "NET.NUM_CLASSES", "4",
        "MASK_SIZE", "9", "NET.WARP_HW", "4", "NET.FC_DIM", "32", "NET.MASK_FC_DIM", "16",

@@ -19,6 +19,7 @@ import pytest
 
 from mnc_tpu.pipeline.server import decode_image as j_decode_image
 from mnc_tpu_torch.pipeline.server import MicroBatcher, decode_image, make_http_server
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 
 def _serve(srv):

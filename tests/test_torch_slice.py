@@ -27,6 +27,7 @@ from mnc_tpu_torch.models.mnc import MNC, MNCArch
 from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg, postprocess_detections
 from mnc_tpu_torch.pipeline.inference import vote_candidates
 from mnc_tpu_torch.utils.checkpoint import load_npz, state_dict_from_jax
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 SMALL = dict(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
              warp_hw=4, n_stages=5, fc_dim=64, mask_fc_dim=32, pre_nms_top_n=64,

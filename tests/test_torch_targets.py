@@ -16,6 +16,7 @@ import torch
 from mnc_tpu.ops.anchors import shifted_anchors
 from mnc_tpu.train import targets as JT
 from mnc_tpu_torch.train import targets as T
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 

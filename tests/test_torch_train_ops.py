@@ -19,6 +19,7 @@ from mnc_tpu.ops import bbox as jbbox
 from mnc_tpu.ops import losses as jlosses
 from mnc_tpu.ops import masks as jmasks
 from mnc_tpu_torch.ops import bbox, losses, masks
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 

@@ -47,6 +47,7 @@ from mnc_tpu_torch.train.optim import make_optimizer
 from mnc_tpu_torch.utils.checkpoint import (jax_params_from_state_dict, load_train_state,
                                             save_train_state, state_dict_from_jax)
 from tests.test_torch_resnet import _leaves, randomize_bn
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 SMALL = dict(canvas=(128, 160), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
              warp_hw=4, fc_dim=64, mask_fc_dim=32, pre_nms_top_n=128, post_nms_top_n=32,
@@ -106,6 +107,18 @@ def _j_sampled(params, jmodel, jarch, anchors, ex, key):
 
 
 _J_RESULTS: dict = {}  # (JAX arch, image index) -> JAX losses, gradients, targets (f64)
+_J_PARAMS: dict = {}  # JAX arch -> its init params
+
+
+def _init_params(jmodel, jarch, batch):
+    """``MNC.init`` with PRNGKey(0), compiled (an eager init of the f64
+    cascade takes tens of seconds), once per architecture: the batch case
+    and the single-image case share them."""
+    if jarch not in _J_PARAMS:
+        _J_PARAMS[jarch] = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                                jnp.asarray(batch["image"][0]),
+                                                jnp.asarray(batch["im_info"][0]))
+    return _J_PARAMS[jarch]
 
 
 def frozen_parameter_names(model: MNC) -> list:
@@ -136,8 +149,7 @@ class Case:
         data = SyntheticShapes(**DATA_KW)
         batch = {k: (v.astype(np.float64) if f64 and v.dtype == np.float32 else v)
                  for k, v in data.batch(indices).items()}
-        params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(batch["image"][0]),
-                             jnp.asarray(batch["im_info"][0]))
+        params = _init_params(jmodel, jarch, batch)
         if arch.trunk != "vgg16":
             params = randomize_bn({"params": params["params"]}, np.random.RandomState(12))
         anchors = jnp.asarray(jarch.all_anchors())

@@ -12,6 +12,7 @@ from tests.test_torch_train_step import (  # noqa: F401  (collected here)
     test_parameters_after_one_step_match,
     test_sampled_rois_and_labels_identical,
 )
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 case = case_fixture(3)
 

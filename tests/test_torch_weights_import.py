@@ -28,6 +28,7 @@ from mnc_tpu.utils import weights as jweights
 from mnc_tpu_torch.models.mnc import MNC, MNCArch
 from mnc_tpu_torch.tools import fabricate_caffemodel as fab
 from mnc_tpu_torch.utils import caffemodel, checkpoint, weights
+import tests.torch_threads  # noqa: F401,E402  (torch threads per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a small VGG-16 MNC (full trunk widths, narrow heads) whose layer shapes a
