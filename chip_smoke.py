@@ -18,11 +18,17 @@ Phases, each printing its lines before the two JSON lines at the end:
    the warp also on the portrait canvas's 64x40 map, the paste also at
    M = 28 on both canvases; and at the shapes of ``cfm_detect``: the warp
    on one image's 300 segments, NMS on 20 per-class problems of 300, the
-   paste at N = 100),
+   paste at N = 100), and kernel E (the int8 GEMM) at every shape of the
+   int8 serving paths (VGG-16's convolutions from conv1_1's K = 27 to the
+   40x64 and 64x40 maps of conv5; fc6, fc7 and fc_mask on 1216 RoIs, fc6 on
+   CFM's 300; the ResNet stem's K = 147, 1x1 and 3x3 at stride 1 and 2,
+   the conv5 head's 14 -> 7; a small f32 shape with an odd Cout and a dense
+   K of 300), on random and on all-+-127 operands, bit for bit, and
+   ``quant_act`` on the card against the CPU,
    then timed (CUDA events, after warm-up) beside the plain version and,
    where one PyTorch call computes the same function, that call.  NMS, the
-   paste (N = 400, the serving request, and N = 100) and block 1 (B = 2 and
-   B = 4) are timed and bounded per shape.
+   paste (N = 400, the serving request, and N = 100), block 1 (B = 2 and
+   B = 4) and E are timed and bounded per shape.
 4. main paths, each with the launch counters zeroed just before and read
    just after:
    a. serving — batched 5-stage VGG-16 at full width (640×1024 canvas, FC
@@ -84,7 +90,18 @@ Phases, each printing its lines before the two JSON lines at the end:
       the trunk and the classify head move, the RPN and the mask head
       move by weight decay alone, bit for bit); then a small f32 model's
       ``cfm_detect`` and CFM train step and ``tools/test_net --segdb`` on
-      ``synthetic_8``, card against CPU.
+      ``synthetic_8``, card against CPU;
+   i. int8 serving (``TEST.INT8``, kernel E on every int8 layer): a.'s
+      VGG-16 with ``int8_inference`` against the bf16 model of the same
+      seed, 10 requests each, interleaved (median and worst ms); cls_prob
+      index by index against the bf16 cascade's (reported); an image's
+      ``detect`` against the same image in a ``detect_many`` batch of 4 with
+      wide-range batchmates (the batch-wide activation scale: the features
+      must differ); ``tools.int8_audit`` on 4 synthetic 640x1024 images;
+      then the ResNet-101 COCO configuration under ``TEST.INT8``, one
+      request with the conv5 head and one with the fc head (checked as in
+      a.), each against its bf16 cascade; then small f32 int8 models
+      (VGG-16, ResNet-50 with the conv5 head) card against CPU.
 5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
    of phase 3, per shape where there are several; bounds from this run's
    inputs), then ``{"ok": true, ...}``.
@@ -96,6 +113,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -686,6 +704,175 @@ def check_paste(g):
                 library_ms=main["library_ms"], shapes=shapes)
 
 
+INT8_OP_PER_S = 1979e12  # H100 SXM data sheet, dense int8 on the tensor cores
+# kernel E's shapes on the int8 serving paths: label -> (kind, x shape, Cout, k, stride,
+# pad, bias, out dtype).  Convolutions take NHWC x; dense layers (M, K).  VGG-16 and
+# ResNet-101 at a request of 4 640x1024 canvases, 304 RoIs each (M = 1216), cfm_detect's
+# 300 segments of one image, and a small f32 model's odd sizes.
+BF, F32 = torch.bfloat16, torch.float32
+GEMM_S8_SHAPES = {
+    "vgg conv1_1 (K=27)": ("conv", (4, *CANVAS, 3), 64, 3, 1, 1, True, BF),
+    "vgg conv1_2": ("conv", (4, *CANVAS, 64), 64, 3, 1, 1, True, BF),
+    "vgg conv2_1": ("conv", (4, 320, 512, 64), 128, 3, 1, 1, True, BF),
+    "vgg conv3_2": ("conv", (4, 160, 256, 256), 256, 3, 1, 1, True, BF),
+    "vgg conv4_2": ("conv", (4, 80, 128, 512), 512, 3, 1, 1, True, BF),
+    "vgg conv5_2 (40x64)": ("conv", (4, 40, 64, 512), 512, 3, 1, 1, True, BF),
+    "vgg conv5_2 portrait (64x40)": ("conv", (4, 64, 40, 512), 512, 3, 1, 1, True, BF),
+    "fc6 (M=1216)": ("dense", (1216, 25088), 4096, 1, 1, 0, True, BF),
+    "fc7 (M=1216)": ("dense", (1216, 4096), 4096, 1, 1, 0, True, BF),
+    "fc_mask (M=1216)": ("dense", (1216, 100352), 256, 1, 1, 0, True, BF),
+    "fc6 cfm (M=300)": ("dense", (300, 25088), 4096, 1, 1, 0, True, BF),
+    "resnet stem 7x7/s2 (K=147)": ("conv", (4, *CANVAS, 3), 64, 7, 2, 3, False, BF),
+    "resnet 1x1 stage2": ("conv", (4, 160, 256, 256), 64, 1, 1, 0, False, BF),
+    "resnet 1x1/s2 proj stage3": ("conv", (4, 160, 256, 256), 512, 1, 2, 0, False, BF),
+    "resnet 3x3/s2 v1.5 stage4": ("conv", (4, 80, 128, 256), 256, 3, 2, 1, False, BF),
+    "resnet 3x3 stage4 (40x64)": ("conv", (4, 40, 64, 256), 256, 3, 1, 1, False, BF),
+    "conv5 head 1x1/s2 proj (14->7)": ("conv", (1216, 14, 14, 1024), 2048, 1, 2, 0, False, BF),
+    "conv5 head 3x3 (7x7)": ("conv", (1216, 7, 7, 512), 512, 3, 1, 1, False, BF),
+    "small f32 conv (odd Cout)": ("conv", (2, 13, 17, 24), 21, 3, 1, 1, True, F32),
+    "small f32 dense (K=300)": ("dense", (37, 300), 40, 1, 1, 0, True, F32),
+}
+# the shapes also run on all-+-127 operands, where every lane's product is the largest
+GEMM_S8_EXTREME = ("vgg conv1_1 (K=27)", "vgg conv5_2 (40x64)", "fc7 (M=1216)",
+                   "resnet stem 7x7/s2 (K=147)", "small f32 dense (K=300)")
+
+
+def _gemm_s8_inputs(g, kind, shape, cout, k, bias, dtype):
+    """Quantized operands as the int8 layers make them: activations after a
+    ReLU in the compute dtype (quant_act), f32 weights (quant_weight)."""
+    from mnc_tpu_torch.ops.quant import quant_act, quant_weight
+
+    x = torch.relu(torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+    cin = shape[-1]
+    wshape = (cout, cin, k, k) if kind == "conv" else (cout, cin)
+    w = torch.randn(wshape, generator=g, device="cuda") * 0.05
+    xq, xs = quant_act(x, per_row=kind == "dense")
+    wq, ws = quant_weight(w)
+    b = torch.randn(cout, generator=g, device="cuda") if bias else None
+    return x, w, xq.contiguous(), xs, wq, ws, b
+
+
+def _extreme(g, t):
+    """An int8 tensor of t's shape holding only -127 and 127."""
+    s = torch.randint(0, 2, t.shape, generator=g, device=t.device, dtype=torch.int16)
+    return (s * 254 - 127).to(torch.int8)
+
+
+def check_gemm_s8(g):
+    """Kernel E against gemm_s8_plain (float64 sums of the int8 values, exact)
+    at every shape of the int8 serving paths, on random and on all-+-127
+    operands: the outputs must be bit-identical.  Then quant_act on the card
+    against the CPU, bit for bit, in bf16 and f32 (the scales feed both).
+    Timed per shape beside the plain version, the bound, and the library:
+    for the dense layers torch._int_mm and the same dequantization (the
+    same function); for a convolution there is no int8 convolution in
+    PyTorch on CUDA, so library_ms is null and the float path's bf16 cuDNN
+    convolution of the same shape is given beside it (another function)."""
+    import torch.nn.functional as F
+    from mnc_tpu_torch.kernels import gemm_s8_cuda
+    from mnc_tpu_torch.ops.quant import dequantize, gemm_s8_plain, quant_act
+
+    shapes = {}
+    for label, (kind, shape, cout, k, stride, pad, bias, dtype) in GEMM_S8_SHAPES.items():
+        x, w, xq, xs, wq, ws, b = _gemm_s8_inputs(g, kind, shape, cout, k, bias, dtype)
+        args = (stride, pad, dtype) if kind == "conv" else (1, 0, dtype)
+        got = gemm_s8_cuda(xq, wq, xs, ws, b, *args)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = gemm_s8_plain(xq, wq, xs, ws, b, *args)
+        t1.record()
+        torch.cuda.synchronize()
+        p_ms = t0.elapsed_time(t1)
+        diff = (got.float() - want.float()).abs().max().item()
+        same = torch.equal(got, want)
+        del want
+        extreme = ""
+        if label in GEMM_S8_EXTREME:
+            xe, we = _extreme(g, xq), _extreme(g, wq)
+            e_got = gemm_s8_cuda(xe, we, xs, ws, b, *args)
+            e_want = gemm_s8_plain(xe, we, xs, ws, b, *args)
+            e_same = torch.equal(e_got, e_want)
+            extreme = f"; all +-127 operands bit-identical: {e_same}"
+            same = same and e_same
+            diff = max(diff, (e_got.float() - e_want.float()).abs().max().item())
+            del xe, we, e_got, e_want
+        m = got.numel() // cout
+        kk = xq.shape[-1] * (k * k if kind == "conv" else 1)
+        k_ms = cuda_ms(lambda: gemm_s8_cuda(xq, wq, xs, ws, b, *args), iters=10)
+        n_bytes = nbytes(xq, wq, xs, ws, got) + (nbytes(b) if b is not None else 0)
+        bms, by = bound_ms(n_bytes, 2.0 * m * cout * kk, INT8_OP_PER_S)
+        row = dict(kind=kind, x=list(shape), cout=cout, k=k, stride=stride, pad=pad,
+                   gmac=m * cout * kk / 1e9, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+                   bound_by=by, bit_identical=same, max_abs_err=diff)
+        # torch._int_mm takes M > 16 and K, N multiples of 8
+        if kind == "dense" and m > 16 and kk % 8 == 0 and cout % 8 == 0:
+            def int_mm():
+                return dequantize(torch._int_mm(xq, wq.t()), xs, ws, b, dtype)
+
+            lib_same = torch.equal(int_mm(), got)
+            row.update(library_ms=cuda_ms(int_mm, iters=10), library_bit_identical=lib_same)
+            lib = f"library_ms(torch._int_mm + dequantize) {row['library_ms']:.4f} " \
+                  f"(bit-identical {lib_same})"
+        elif kind == "dense":
+            row.update(library_ms=None)
+            lib = "library_ms null (torch._int_mm refuses K or N not a multiple of 8)"
+        else:
+            xn = x.permute(0, 3, 1, 2)
+            wf = w.to(dtype).contiguous(memory_format=torch.channels_last)
+            bf = None if b is None else b.to(dtype)
+            row.update(library_ms=None, float_path_ms=cuda_ms(
+                lambda: F.conv2d(xn, wf, bf, stride, pad), iters=10))
+            lib = f"library_ms null (no int8 conv in PyTorch); float path ({dtype} cuDNN " \
+                  f"conv, another function) {row['float_path_ms']:.4f}"
+        log(f"kernel E gemm_s8 {label} {kind} x{tuple(shape)} -> {cout} (k {k}, s {stride}, "
+            f"p {pad}, {dtype}): bit-identical to the plain version {same} (max_abs_err "
+            f"{diff:.3e}){extreme}; kernel_ms {k_ms:.4f} plain_ms(f64) {p_ms:.4f} {lib} "
+            f"bound_ms {bms:.4f} ({by}, {bms / k_ms:.0%} of it; {row['gmac']:.2f} GMAC)")
+        shapes[label] = row
+        del x, w, xq, wq, got
+        if not same:
+            raise AssertionError(f"gemm_s8 kernel differs from its plain version ({label})")
+    torch.cuda.empty_cache()
+    # quant_act on the card against the CPU (the JAX package's rounding points)
+    for dtype in (BF, F32):
+        for per_row, shape in ((False, (1, 160, 256, 64)), (True, (1216, 4096))):
+            x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+            gq, gs = quant_act(x, per_row)
+            cq, cs = quant_act(x.cpu(), per_row)
+            if not (torch.equal(gq.cpu(), cq) and torch.equal(gs.cpu(), cs)):
+                raise AssertionError(f"quant_act {dtype} per_row={per_row}: the card and "
+                                     f"the CPU differ")
+    log("quant_act on the card vs the CPU: int8 values and scales bit-identical (bf16 and "
+        "f32, per tensor and per row)")
+    main = shapes["vgg conv1_2"]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in shapes.values()), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"], shapes=shapes)
+
+
+def _check_serving(out, arch, b, k):
+    """Shapes (``k`` detections per canvas), finite values, some valid
+    detection, classes in [1, C), bool canvases of a ``detect_canvas_batch``
+    result; the count of valid ones."""
+    shapes = {"boxes": (b, k, 4), "scores": (b, k), "classes": (b, k),
+              "masks": (b, k, arch.mask_size, arch.mask_size), "valid": (b, k),
+              "canvas_masks": (b, k, *arch.canvas)}
+    for key, shp in shapes.items():
+        if tuple(out[key].shape) != shp:
+            raise AssertionError(f"{key} has shape {tuple(out[key].shape)}, want {shp}")
+    for key in ("boxes", "scores", "masks"):
+        if not torch.isfinite(out[key]).all():
+            raise AssertionError(f"{key} is not finite")
+    if not out["valid"].any() or out["canvas_masks"].dtype != torch.bool:
+        raise AssertionError("no valid detection / canvas masks not bool")
+    cls = out["classes"]
+    if not ((cls >= 1) & (cls < arch.num_classes)).all():
+        raise AssertionError("classes out of range")
+    return int(out["valid"].sum())
+
+
 def serve_path(device_label, name, arch, n_requests=2):
     """``MNCPipeline.detect_canvas_batch`` at full width on ``arch``: one
     warm-up request, then ``n_requests`` requests of 4 canvases, each checked
@@ -713,25 +900,6 @@ def serve_path(device_label, name, arch, n_requests=2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    k = pipe.post.max_per_image
-    shapes = {"boxes": (b, k, 4), "scores": (b, k), "classes": (b, k),
-              "masks": (b, k, arch.mask_size, arch.mask_size), "valid": (b, k),
-              "canvas_masks": (b, k, *arch.canvas)}
-
-    def check(out):
-        for key, shp in shapes.items():
-            if tuple(out[key].shape) != shp:
-                raise AssertionError(f"{key} has shape {tuple(out[key].shape)}, want {shp}")
-        for key in ("boxes", "scores", "masks"):
-            if not torch.isfinite(out[key]).all():
-                raise AssertionError(f"{key} is not finite")
-        if not out["valid"].any() or out["canvas_masks"].dtype != torch.bool:
-            raise AssertionError("no valid detection / canvas masks not bool")
-        cls = out["classes"]
-        if not ((cls >= 1) & (cls < arch.num_classes)).all():
-            raise AssertionError("classes out of range")
-        return int(out["valid"].sum())
-
     # each request's result is checked after its timing and then dropped, as
     # a server hands it on, so later requests reuse the same device memory
     lat, n_valid = [], []
@@ -740,7 +908,7 @@ def serve_path(device_label, name, arch, n_requests=2):
         out = pipe.detect_canvas_batch(reqs[r], infos)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
-        n_valid.append(check(out))
+        n_valid.append(_check_serving(out, arch, b, pipe.post.max_per_image))
         del out
     counts = launch_counts()
     log(f"serve {name}: launches {counts}; valid detections per request {n_valid}; "
@@ -1988,8 +2156,191 @@ def test_net_segdb_agrees(tmp):
     log("test_net --segdb synthetic_8: the AP tables of the card and the CPU are identical")
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: int8 serving (TEST.INT8)
+# ---------------------------------------------------------------------------
+
+N_INT8_REQUESTS = 10  # request pairs timed, int8 and bf16 interleaved
+
+
+def _tracks(name, got, want):
+    """An int8 cascade's cls_prob against the float one's, RoI index by RoI
+    index over the RoIs valid in both, with ``tests/test_quant.py``'s
+    measures (correlation, its gate > 0.995; max |delta|, its gate < 0.05).
+    Reported, not gated: at full width with seeded random weights the two
+    cascades propose different RoIs at the same index (the trunk error
+    reorders near-tied proposals among 6000), so index-wise scores compare
+    different boxes; ``small_int8_model_agrees`` and the audit's head
+    isolation (the same features and RoIs) hold the int8 path instead."""
+    both = got["roi_valid"] & want["roi_valid"]
+    g = got["cls_prob"][both].float().cpu().numpy().ravel()
+    w = want["cls_prob"][both].float().cpu().numpy().ravel()
+    same = (got["rois"] == want["rois"]).all(-1) & both
+    corr = float(np.corrcoef(g, w)[0, 1])
+    dmax = float(np.abs(g - w).max())
+    log(f"int8 {name}: cls_prob against the bf16 cascade's on the same canvases, index by "
+        f"index over {int(both.sum())} RoIs valid in both ({int(same.sum())} of them the "
+        f"same box): correlation {corr:.6f} (the JAX test's gate at its small size: > 0.995), "
+        f"max |delta| {dmax:.4e} (there: < 0.05)")
+
+
+def small_int8_model_agrees(arch_kw=None):
+    """A small f32 int8 model on the card (kernel E) against the same weights
+    on the CPU (the plain version, bit-identical to the JAX package): the
+    int8 layers agree bit for bit (phase 3), the float layers sum in other
+    orders, and a RoI feature that moves by an ulp can move one int8 value
+    of a per-RoI dense layer by a step, so the scores are held within 1e-3
+    (the CPU test's bound against JAX), boxes within 1e-2 px, mask
+    probabilities within 2e-3, with identical selections."""
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
+
+    arch = MNCArch(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
+                   warp_hw=4, compute_dtype=torch.float32, fc_dim=64, mask_fc_dim=32,
+                   pre_nms_top_n=64, post_nms_top_n=16, rpn_min_size=4.0,
+                   int8_inference=True, **(arch_kw or {}))
+    post = PostCfg(dets_per_class=4, max_per_image=8)
+    g = torch.Generator().manual_seed(2)
+    imgs = torch.randint(0, 256, (2, 96, 128, 3), generator=g, dtype=torch.uint8)
+    infos = torch.tensor([[96.0, 128.0, 1.0], [80.0, 120.0, 1.0]])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = MNC(arch, device=dev, seed=3)
+        if arch.trunk != "vgg16":
+            randomize_frozen_bn(model, 4)
+        out[dev] = MNCPipeline(model, post).detect_canvas_batch(imgs, infos)
+    gpu, cpu = out["cuda"], out["cpu"]
+    for key in ("valid", "classes"):
+        if not torch.equal(gpu[key].cpu(), cpu[key]):
+            raise AssertionError(f"small int8 model: {key} differs between card and CPU")
+    errs = {key: (gpu[key].cpu() - cpu[key]).abs().max().item()
+            for key in ("boxes", "scores", "masks")}
+    log(f"small f32 int8 model ({arch.trunk}, roi_conv5 {arch.roi_conv5}), card vs CPU: "
+        f"selections identical ({int(cpu['valid'].sum())} valid); max abs diff {errs}")
+    if errs["boxes"] > 1e-2 or errs["scores"] > 1e-3 or errs["masks"] > 2e-3:
+        raise AssertionError("small int8 model: card and CPU disagree beyond tolerance")
+
+
+def int8_serve_path(device_label, arch):
+    """Phase 4i on phase 4a's VGG-16 (bf16, seeded init): the int8 model
+    (``int8_inference``; its int8 layers' weights the same f32 values that the
+    bf16 model rounds) against the bf16 one on the same canvases.  Returns the
+    launch counts of the int8 requests alone (the counts are zeroed before
+    each of them and read after it)."""
+    from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mnc_tpu_torch.models.mnc import MNC
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
+    from mnc_tpu_torch.tools.int8_audit import audit, synthetic_images
+
+    models = {"bf16": MNC(arch, device="cuda", seed=0),
+              "int8": MNC(dataclasses.replace(arch, int8_inference=True), device="cuda",
+                          seed=0)}
+    post = PostCfg.from_cfg(dets_per_class=16)
+    pipes = {k: MNCPipeline(m, post) for k, m in models.items()}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    b = 4
+    reqs = [torch.randint(0, 256, (b, *arch.canvas, 3), generator=g, device="cuda",
+                          dtype=torch.uint8) for _ in range(N_INT8_REQUESTS)]
+    infos = torch.tensor([[float(arch.canvas[0]), float(arch.canvas[1]), 1.0]] * b,
+                         device="cuda")
+    for pipe in pipes.values():  # warm-up: cuDNN plans, the int8 weights quantized once
+        pipe.detect_canvas_batch(reqs[-1], infos)
+    torch.cuda.synchronize()
+    lat = {k: [] for k in pipes}
+    counts: dict = {}
+    for r in reqs:
+        for k, pipe in pipes.items():
+            if k == "int8":
+                reset_launch_counts()
+            t0 = time.perf_counter()
+            out = pipe.detect_canvas_batch(r, infos)
+            torch.cuda.synchronize()
+            lat[k].append((time.perf_counter() - t0) * 1e3)
+            if k == "int8":
+                for name, c in launch_counts().items():
+                    counts[name] = counts.get(name, 0) + c
+            _check_serving(out, arch, b, post.max_per_image)
+            del out
+    log(f"serve VGG-16 int8: launches over {N_INT8_REQUESTS} requests {counts}")
+    for k, ms in lat.items():
+        log(f"serve VGG-16 {k} on {device_label}: per request of {b} canvases median "
+            f"{float(np.median(ms)):.2f} ms, worst {max(ms):.2f} ms over {len(ms)} "
+            f"(interleaved with the other dtype): " + ", ".join(f"{x:.1f}" for x in ms))
+    log(f"serve VGG-16: int8 median / bf16 median = "
+        f"{float(np.median(lat['int8'])) / float(np.median(lat['bf16'])):.3f}")
+    with torch.inference_mode():
+        nets = {k: m.apply_batch(reqs[0], infos) for k, m in models.items()}
+    _tracks("VGG-16", nets["int8"], nets["bf16"])
+
+    # the activation scale covers the batch: an image alone against the same
+    # image beside three wide-range batchmates (the reference's behaviour)
+    rs = np.random.RandomState(3)
+    quiet = rs.randint(118, 138, (480, 640, 3)).astype(np.uint8)
+    loud = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(3)]
+    for k, pipe in pipes.items():
+        alone = pipe.detect(quiet)
+        batched = pipe.detect_many([quiet, *loud], batch_size=4)[0]
+        n = min(len(alone["scores"]), len(batched["scores"]))
+        ds = float(np.abs(alone["scores"][:n] - batched["scores"][:n]).max()) if n else 0.0
+        same_boxes = bool(n and np.array_equal(alone["boxes"][:n], batched["boxes"][:n]))
+        with torch.inference_mode():
+            canv = torch.as_tensor(np.stack([quiet, *loud]), device="cuda")
+            canv = torch.nn.functional.pad(canv, (0, 0, 0, arch.canvas[1] - 640, 0,
+                                                  arch.canvas[0] - 480))
+            f4 = models[k].features(canv)[0].float()
+            f1 = models[k].features(canv[:1])[0].float()
+        df = ((f4 - f1).abs().max() / f1.abs().max()).item()
+        log(f"int8 batch scale, {k}: detect(image) against detect_many([image, 3 wide-range "
+            f"batchmates])[0]: {len(alone['scores'])} / {len(batched['scores'])} detections, "
+            f"max |delta score| over the first {n} {ds:.4e}, boxes identical {same_boxes}; "
+            f"trunk features of the padded canvas alone against in the batch: max |delta| "
+            f"{df:.4e} of their max")
+        if k == "int8" and df == 0.0:
+            raise AssertionError("int8: an image's features do not depend on its batch")
+
+    # the audit, each image on its own as the JAX tool runs it
+    t0 = time.perf_counter()
+    rec = audit(models["bf16"], models["int8"], *synthetic_images(arch, 4))
+    log(f"int8_audit VGG-16 (phase 4a's arch, seeded weights, 4 synthetic 640x1024 images, "
+        f"{time.perf_counter() - t0:.1f} s): {json.dumps(rec)}")
+    return counts
+
+
+def int8_resnet_paths(device_label):
+    """Phase 4i on the ResNet-101 COCO configuration, conv5 and fc heads,
+    with ``TEST.INT8``: one request each through ``serve_path`` (phase 4d's
+    checks and counts), and cls_prob against the bf16 cascade's."""
+    from mnc_tpu_torch import config as C
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+
+    by_path = {}
+    for roi_conv5, name in ((True, "resnet101_conv5"), (False, "resnet101_fc")):
+        with coco_cfg(roi_conv5):
+            C.cfg_from_list(["TEST.INT8", "True"])
+            arch = MNCArch.from_cfg()
+            assert arch.int8_inference and arch.trunk == "resnet101", arch
+            by_path[f"serve_int8_{name}"] = serve_path(
+                device_label, f"ResNet-101 COCO int8 ({name})", arch, 1)
+            g = torch.Generator(device="cuda").manual_seed(5)
+            canv = torch.randint(0, 256, (4, *arch.canvas, 3), generator=g, device="cuda",
+                                 dtype=torch.uint8)
+            infos = torch.tensor([[float(arch.canvas[0]), float(arch.canvas[1]), 1.0]] * 4,
+                                 device="cuda")
+            nets = {}
+            for q in (False, True):  # random FrozenBN leaves: at init each block is its shortcut
+                model = randomize_frozen_bn(MNC(dataclasses.replace(arch, int8_inference=q),
+                                                device="cuda", seed=0), 4)
+                with torch.inference_mode():
+                    nets[q] = model.apply_batch(canv, infos)
+                del model
+            _tracks(f"ResNet-101 COCO ({name})", nets[True], nets[False])
+            del nets
+        torch.cuda.empty_cache()
+    return by_path
+
+
 CHECKS = {"roi_warp": check_roi_warp, "roi_warp_bwd": check_roi_warp_bwd, "nms": check_nms,
-          "paste_binarize": check_paste, "block1": check_block1}
+          "paste_binarize": check_paste, "block1": check_block1, "gemm_s8": check_gemm_s8}
 
 
 def main(argv=None) -> int:
@@ -2098,6 +2449,14 @@ def main_paths(g, smi) -> dict:
         small_cfm_detect_agrees()
         small_cfm_train_step_agrees()
         test_net_segdb_agrees(tmp)
+    torch.cuda.empty_cache()
+
+    # phase 4i: int8 serving
+    by_path["serve_int8"] = int8_serve_path(label, vgg)
+    torch.cuda.empty_cache()
+    by_path.update(int8_resnet_paths(label))
+    for arch_kw in (None, RESNET_SMALL):
+        small_int8_model_agrees(arch_kw)
     return by_path
 
 
@@ -2115,16 +2474,21 @@ def report_kernels(results, by_path, t_start) -> None:
                            "mnc_tpu/ops/pallas/paste_kernel.py:92"),
         "block1": ("block1_cuda", "mnc_tpu_torch/csrc/block1.cu",
                    "mnc_tpu/ops/pallas/block1_kernel.py:172"),
+        # no Pallas site: XLA's s8 convolution (dense: quant.py:108)
+        "gemm_s8": ("gemm_s8_cuda", "mnc_tpu_torch/csrc/gemm_s8.cu",
+                    "mnc_tpu/ops/quant.py:84"),
     }
     # the paths that must launch each kernel
     serving = ("serve", "serve_resnet101_conv5", "serve_resnet101_fc")
     training = ("train", "train_resnet101_conv5")
     serving += ("detect_many", "serve_http", "serve_http_single", "exported")
-    must = {"roi_warp": serving + training + ("cfm_serve", "cfm_train"),
+    int8 = ("serve_int8", "serve_int8_resnet101_conv5", "serve_int8_resnet101_fc")
+    must = {"roi_warp": serving + training + int8 + ("cfm_serve", "cfm_train"),
             "roi_warp_bwd": training + ("cfm_train",),
-            "nms": serving + training + ("cfm_serve",),
-            "paste_binarize": serving + ("cfm_serve",),
-            "block1": ("train_fused_block1",)}
+            "nms": serving + training + int8 + ("cfm_serve",),
+            "paste_binarize": serving + int8 + ("cfm_serve",),
+            "block1": ("train_fused_block1",),
+            "gemm_s8": int8}
     report = []
     for name, (wrapper, source, replaces) in meta.items():
         per_path = {path: c[wrapper] for path, c in by_path.items()}

@@ -1,25 +1,27 @@
 """Time the redesigned kernels — B (NMS), A′ (RoI-warp backward), C (paste +
-binarize) and D (fused VGG block 1) — against earlier or differently tuned
-builds of themselves, on one GPU, inside one process.
+binarize), D (fused VGG block 1) — and E (the int8 GEMM) against earlier or
+differently tuned builds of themselves, on one GPU, inside one process.
 
     python3 -m mnc_tpu_torch.compare_kernels [--parent-csrc DIR] [--only paste,block1]
         [--nms-variant=-DMNC_NMS_CLUSTER=8] [--bwd-variant=-DMNC_RWB_THREADS=1024]
         [--paste-variant=-DMNC_PASTE_BAND=64] [--block1-variant=-DMNC_B1_PRODUCERS=1]
-        [--bwd-source LABEL=PATH] [--paste-source LABEL=PATH]
-        [--block1-source LABEL=PATH] [--profile] [--out FILE.json]
+        [--gemm-s8-variant=-DMNC_S8_STAGES=2] [--bwd-source LABEL=PATH]
+        [--paste-source LABEL=PATH] [--block1-source LABEL=PATH]
+        [--gemm-s8-source LABEL=PATH] [--profile] [--out FILE.json]
 
 Run it from the repository's root (it borrows ``chip_smoke.py``'s inputs and
 timer).  Two runs on two cards, or at two times, cannot be compared, so every
 build is timed in one call, in the order given and then in reverse (parent,
 change, ..., change, parent), each after its outputs were held against the
 plain PyTorch version (C: binarization equal except within 1e-5 of the
-threshold; D: ``block1_tolerance`` with >= 0.999 bit-identical).
+threshold; D: ``block1_tolerance`` with >= 0.999 bit-identical; E: bit for
+bit, at five of ``chip_smoke.py``'s int8 serving shapes).
 
 ``--parent-csrc DIR`` names a directory holding the parent commit's sources
 (``git show <commit>:mnc_tpu_torch/csrc/paste.cu > DIR/paste.cu``); each of
 ``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu`` and ``block1.cu`` found there is
-built and timed.  ``nms.cu`` and ``roi_warp_bwd.cu`` must have today's C
-interfaces; ``paste.cu`` and ``block1.cu`` the first port's (no extent
+built and timed.  ``nms.cu``, ``roi_warp_bwd.cu`` and ``gemm_s8.cu`` must
+have today's C interfaces; ``paste.cu`` and ``block1.cu`` the first port's (no extent
 scratch; HWIO weights), and are driven exactly as their wrappers drove them
 (D's weights permuted and cast on every call).  Each ``--*-variant``
 (repeatable) builds the current source with extra ``nvcc`` flags (the macros
@@ -52,8 +54,12 @@ PARENT_ABI = {  # the C interfaces of the parent commit's sources
     "paste_binarize": ("paste.cu", "mnc_paste_binarize",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "block1": _build.KERNEL_ABI["block1"],
+    "gemm_s8": _build.KERNEL_ABI["gemm_s8"],
 }
-KINDS = ("nms", "roi_warp_bwd", "paste", "block1")
+KINDS = ("nms", "roi_warp_bwd", "paste", "block1", "gemm_s8")
+# chip_smoke.GEMM_S8_SHAPES timed here
+GEMM_S8_TIMED = ("vgg conv1_1 (K=27)", "vgg conv1_2", "vgg conv4_2", "fc6 (M=1216)",
+                 "fc_mask (M=1216)", "conv5 head 3x3 (7x7)")
 
 
 def load(source: Path, abi, flags=()):
@@ -209,6 +215,41 @@ def block1_callers(args):
     return callers
 
 
+def gemm_s8_callers(args):
+    """{label: f(xq, wq, xs, ws, bias, stride, pad, out_dtype) -> out}, as
+    ``kernels.gemm_s8_cuda`` drives the C function."""
+    def make(fn):
+        def call(xq, wq, xs, ws, bias, stride, pad, out_dtype):
+            conv = xq.dim() == 4
+            n = wq.shape[0]
+            if conv:
+                b, h, w, c = xq.shape
+                k = wq.shape[1]
+                oh, ow = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+                shape = (b, oh, ow, n)
+            else:
+                (b, c), h, w, k, oh, ow = xq.shape, 1, 1, 1, 1, 1
+                shape, stride, pad = (b, n), 1, 0
+            out = torch.empty(shape, dtype=out_dtype, device=xq.device)
+            vec = int(k * k * c % 16 == 0 and (not conv or c % 16 == 0))
+            _ok(fn(xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), int(not conv), ws.data_ptr(),
+                   None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, w, c, n,
+                   k, k, stride, pad, oh, ow, int(out_dtype == torch.bfloat16), int(not conv),
+                   vec, _stream()), "gemm_s8")
+            return out
+        return call
+
+    abi = _build.KERNEL_ABI["gemm_s8"]
+    callers = {}
+    parent = _parent(args, "gemm_s8")
+    if parent:
+        callers["parent"] = make(load(parent, PARENT_ABI["gemm_s8"]))
+    for suffix, src, flags in _sources(args, "gemm_s8", args.gemm_s8_variant,
+                                       args.gemm_s8_source):
+        callers[f"mma.sync tiles {suffix}".strip()] = make(load(src, abi, flags))
+    return callers
+
+
 def there_and_back(callers, run):
     """{label: [ms in the order given, ms in the reverse order]}."""
     labels = list(callers)
@@ -241,9 +282,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent-csrc", default=None)
     ap.add_argument("--only", default=",".join(KINDS),
                     help=f"comma-separated subset of {','.join(KINDS)}")
-    for kind in ("nms", "bwd", "paste", "block1"):
+    for kind in ("nms", "bwd", "paste", "block1", "gemm-s8"):
         ap.add_argument(f"--{kind}-variant", action="append", default=[])
-    for kind in ("bwd", "paste", "block1"):
+    for kind in ("bwd", "paste", "block1", "gemm-s8"):
         ap.add_argument(f"--{kind}-source", action="append", default=[], metavar="LABEL=PATH")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", default=None, help="also write the report to this file")
@@ -369,6 +410,27 @@ def main(argv=None) -> int:
                 cs.log(f"block1 B={shape[0]} [{label}]: ms {ms[label]}")
             report["block1"][f"B={shape[0]}"] = ms
             profiled("block1", f"B={shape[0]}", callers, lambda fn: fn(x, w1, b1, w2, b2))
+
+    if "gemm_s8" in only:
+        report["gemm_s8"] = {}
+        callers = gemm_s8_callers(args)
+        from mnc_tpu_torch.ops.quant import gemm_s8_plain
+        for shape in GEMM_S8_TIMED:
+            kind, xshape, cout, k, stride, pad, bias, dtype = cs.GEMM_S8_SHAPES[shape]
+            _, _, xq, xs, wq, ws, b = cs._gemm_s8_inputs(g, kind, xshape, cout, k, bias, dtype)
+            call_args = (xq, wq, xs, ws, b, stride, pad, dtype)
+            want = gemm_s8_plain(*call_args)
+            for label, fn in callers.items():
+                if not torch.equal(fn(*call_args), want):
+                    wrong.append(f"gemm_s8 [{label}] ({shape}): differs from the plain version")
+                    cs.log(wrong[-1])
+            del want
+            ms = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(*call_args),
+                                                               iters=10))
+            for label in callers:
+                cs.log(f"gemm_s8 {shape} [{label}]: ms {ms[label]}")
+            report["gemm_s8"][shape] = ms
+            profiled("gemm_s8", shape, callers, lambda fn: fn(*call_args))
 
     if args.out:
         out = Path(args.out)

@@ -245,8 +245,14 @@ __C.TEST.VOTE_IMPL = "einsum"
 # always pastes and binarizes in f32 (its kernel on the GPU).
 __C.TEST.PASTE_IMPL = "auto"
 __C.TEST.PASTE_DTYPE = "bf16"
-# int8 inference of the JAX package (ops/quant.py); not ported yet, so the
-# port refuses a config that sets it.
+# int8 inference (ops/quant.py; inference only, training always runs in
+# the float compute dtype): the trunk convolutions (and the ResNet conv5
+# head's) and fc_mask/fc6/fc7 run s8 x s8 -> s32 (kernel E on the card)
+# with per-output-channel weight scales quantized from the unchanged float
+# parameters and dynamic absmax activation scales: one per convolution
+# input over the whole batch (all canvases of a request, all B*N RoIs of
+# the conv5 head, so an image's detections depend on its batchmates), one
+# per RoI for the dense layers.  Off = the float path.
 __C.TEST.INT8 = False
 
 # Reference-YAML keys accepted for 1:1 config translation but with no

@@ -7,7 +7,7 @@ returns a CUDA error, and then adds one to its ``launches`` counter — a
 plain integer attribute, so a run can show which kernels the main path
 went through.  The ops modules register each kernel as a ``torch.library``
 custom op (``mnc::roi_warp``, ``mnc::nms_keep``, ``mnc::paste_binarize``,
-``mnc::block1``) whose CUDA implementation calls the wrapper here and whose
+``mnc::block1``, ``mnc::gemm_s8``) whose CUDA implementation calls the wrapper here and whose
 CPU implementation is the plain PyTorch version; the gradients (A′, and D's
 backward through its plain version) are called from ``autograd.Function``s.
 Nothing here falls back.
@@ -17,6 +17,8 @@ Nothing here falls back.
     nms_keep_cuda        — kernel B, csrc/nms.cu      (replaces nms_pallas)
     paste_binarize_cuda  — kernel C, csrc/paste.cu    (replaces paste_binarize_pallas)
     block1_cuda          — kernel D, csrc/block1.cu   (replaces fused_block1)
+    gemm_s8_cuda         — kernel E, csrc/gemm_s8.cu  (the int8 conv / dense of
+                           ops/quant.py; no Pallas counterpart)
 """
 
 from __future__ import annotations
@@ -175,7 +177,65 @@ def block1_cuda(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor, w2p: torch
     return out
 
 
-KERNELS = (roi_warp_cuda, roi_warp_bwd_cuda, nms_keep_cuda, paste_binarize_cuda, block1_cuda)
+def gemm_s8_cuda(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                 bias: torch.Tensor | None, stride: int = 1, padding: int = 0,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """s8 × s8 → s32 on the tensor cores, dequantized to ``out_dtype`` (f32
+    or bf16) as ``acc * (xs * ws) + bias``.  A convolution: xq (B, H, W, C)
+    int8, wq (Cout, KH, KW, C) int8 (KH = KW), ``stride`` and symmetric
+    ``padding``, xs one f32 scale → (B, OH, OW, Cout).  A dense layer: xq
+    (M, K) int8, wq (N, K) int8, xs (M, 1) f32 → (M, N).  ws (N,) f32, bias
+    (N,) f32 or None.  16-byte loads where C (and K) are multiples of 16,
+    else byte loads."""
+    conv = xq.dim() == 4
+    _check(xq, "xq", (torch.int8,), 4 if conv else 2)
+    dev = xq.device
+    _check(wq, "wq", (torch.int8,), 4 if conv else 2, dev)
+    _check(ws, "ws", (torch.float32,), 1, dev)
+    if not isinstance(xs, torch.Tensor) or xs.device != dev or xs.dtype != torch.float32:
+        raise ValueError("xs must be an f32 tensor on the device of xq")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype {out_dtype}: f32 or bf16")
+    n = wq.shape[0]
+    if ws.shape[0] != n:
+        raise ValueError(f"ws has shape {tuple(ws.shape)}, wq {tuple(wq.shape)}")
+    if bias is not None:
+        _check(bias, "bias", (torch.float32,), 1, dev)
+        if bias.shape[0] != n:
+            raise ValueError(f"bias has shape {tuple(bias.shape)}, wq {tuple(wq.shape)}")
+    if conv:
+        b, h, w, c = xq.shape
+        kh, kw = wq.shape[1:3]
+        if wq.shape[3] != c or kh != kw:
+            raise ValueError(f"wq {tuple(wq.shape)} does not match xq {tuple(xq.shape)}")
+        if xs.numel() != 1:
+            raise ValueError(f"a convolution takes one activation scale, got {xs.numel()}")
+        oh, ow = (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
+        if stride < 1 or padding < 0 or oh < 1 or ow < 1:
+            raise ValueError(f"stride {stride} / padding {padding} for {(h, w)} x {(kh, kw)}")
+        out = torch.empty((b, oh, ow, n), dtype=out_dtype, device=dev)
+        k = kh * kw * c
+    else:
+        m, c = xq.shape
+        if wq.shape[1] != c:
+            raise ValueError(f"wq {tuple(wq.shape)} does not match xq {tuple(xq.shape)}")
+        if tuple(xs.shape) != (m, 1) or not xs.is_contiguous():
+            raise ValueError(f"xs has shape {tuple(xs.shape)}, expected ({m}, 1) contiguous")
+        b, h, w, kh, kw, oh, ow = m, 1, 1, 1, 1, 1, 1
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+        k, stride, padding = c, 1, 0
+    vec = k % 16 == 0 and (not conv or c % 16 == 0) and not (
+        xq.data_ptr() % 16 or wq.data_ptr() % 16)
+    _launch("gemm_s8", dev, xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), int(not conv),
+            ws.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            b, h, w, c, n, kh, kw, stride, padding, oh, ow,
+            int(out_dtype == torch.bfloat16), int(not conv), int(vec), _stream(xq))
+    gemm_s8_cuda.launches += 1
+    return out
+
+
+KERNELS = (roi_warp_cuda, roi_warp_bwd_cuda, nms_keep_cuda, paste_binarize_cuda, block1_cuda,
+           gemm_s8_cuda)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -35,6 +35,8 @@ KERNEL_ABI = {
     "paste_binarize": ("paste.cu", "mnc_paste_binarize",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "block1": ("block1.cu", "mnc_block1", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "gemm_s8": ("gemm_s8.cu", "mnc_gemm_s8",
+                [_P, _P, _P, _I, _P, _P, _P] + [_I] * 14 + [_P]),
 }
 
 

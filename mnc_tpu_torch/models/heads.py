@@ -10,6 +10,12 @@
 
 The ResNet per-RoI conv5 head is ``models/resnet.py::ConvRoIHead``.
 
+Under ``int8`` (``TEST.INT8``, inference only) ``fc_mask``, ``fc6`` and
+``fc7`` are :class:`~mnc_tpu_torch.ops.quant.DenseInt8` layers (one
+activation scale per RoI; ``dual_pathway``'s concatenated fc6 input is one
+row), with the same parameters; ``mask_pred``, ``cls_score``,
+``bbox_pred`` and the RPN head stay float, as in the JAX package.
+
 Features are NHWC and are flattened in NHWC order into ``fc_mask`` and
 ``fc6``, as in the JAX package, so a Dense kernel (in, out) is the Linear
 weight (out, in) transposed with no row permutation.  Layers cast their
@@ -25,9 +31,12 @@ from torch import nn
 
 from mnc_tpu_torch.models.vgg import conv_cast
 from mnc_tpu_torch.ops.mask_pooling import mask_pooling
+from mnc_tpu_torch.ops.quant import DenseInt8
 
 
 def linear_cast(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(fc, DenseInt8):
+        return fc(x.to(dtype))
     return F.linear(x, fc.weight.to(dtype), fc.bias.to(dtype))
 
 
@@ -53,11 +62,11 @@ class RPNHead(nn.Module):
 
 class MaskHead(nn.Module):
     def __init__(self, in_features: int, fc_dim: int = 256, mask_size: int = 21,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, int8: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.mask_size = mask_size
-        self.fc_mask = nn.Linear(in_features, fc_dim)
+        self.fc_mask = (DenseInt8 if int8 else nn.Linear)(in_features, fc_dim)
         self.mask_pred = nn.Linear(fc_dim, mask_size * mask_size)
 
     def forward(self, roi_feat: torch.Tensor) -> torch.Tensor:
@@ -72,7 +81,7 @@ class MaskHead(nn.Module):
 class ClassifyHead(nn.Module):
     def __init__(self, in_features: int, num_classes: int = 21, fc_dim: int = 4096,
                  pool_window: int = 2, compute_dtype: torch.dtype = torch.bfloat16,
-                 dropout_rate: float = 0.5, dual_pathway: bool = False):
+                 dropout_rate: float = 0.5, dual_pathway: bool = False, int8: bool = False):
         """``in_features``: the pooled, flattened width of one pathway."""
         super().__init__()
         self.compute_dtype = compute_dtype
@@ -80,8 +89,9 @@ class ClassifyHead(nn.Module):
         self.dropout_rate = dropout_rate
         self.fc_dim = fc_dim
         self.dual_pathway = dual_pathway
-        self.fc6 = nn.Linear(in_features * (2 if dual_pathway else 1), fc_dim)
-        self.fc7 = nn.Linear(fc_dim, fc_dim)
+        fc = DenseInt8 if int8 else nn.Linear
+        self.fc6 = fc(in_features * (2 if dual_pathway else 1), fc_dim)
+        self.fc7 = fc(fc_dim, fc_dim)
         self.cls_score = nn.Linear(fc_dim, num_classes)
         self.bbox_pred = nn.Linear(fc_dim, 4 * num_classes)
 

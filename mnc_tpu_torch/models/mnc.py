@@ -30,6 +30,7 @@ from mnc_tpu_torch.models.vgg import VGG16Trunk
 from mnc_tpu_torch.ops.anchors import shifted_anchors
 from mnc_tpu_torch.ops.bbox import bbox_transform_inv, clip_boxes, take_rows
 from mnc_tpu_torch.ops.nms import nms_indices
+from mnc_tpu_torch.ops.quant import QUANT_LAYERS
 from mnc_tpu_torch.ops.roi_warp import roi_warp
 from mnc_tpu_torch.utils.blob import device_normalize
 from mnc_tpu_torch.utils.device import resolve_device
@@ -97,8 +98,13 @@ class MNCArch:
     # NET.FUSED_BLOCK1: run VGG block 1 as the fused CUDA kernel
     # (ops/block1.py) when compute_dtype is bf16, H % 8 == 0 and W % 2 == 0;
     # same parameters, within 1 bf16 ulp of the unfused layers.  Ignored by
-    # the ResNet trunks, as in the JAX package
+    # the ResNet trunks, as in the JAX package, and under int8_inference
     fused_block1: bool = False
+    # TEST.INT8 (inference only): every trunk convolution (and the conv5
+    # head's) and fc_mask/fc6/fc7 run s8 x s8 -> s32 (ops/quant.py, kernel E
+    # on the card) with the same parameters; the activation scale of a
+    # convolution covers all the canvases (RoIs) of a batch
+    int8_inference: bool = False
 
     def __post_init__(self):
         if self.pooled_hw is None:
@@ -117,18 +123,15 @@ class MNCArch:
         """The architecture of the global cfg, with the TEST.* working set
         and thresholds, or the TRAIN.* ones when ``train``.
 
-        Raises for int8 inference (``TEST.INT8``), which the port does not
-        run yet.  ``NET.S2D_BLOCK1`` only changes the JAX package's layout
-        of block 1 (no kernel, same math) and is ignored."""
+        ``TEST.INT8`` sets ``int8_inference`` for the test split only
+        (training always runs in the float compute dtype).
+        ``NET.S2D_BLOCK1`` only changes the JAX package's layout of block 1
+        (no kernel, same math) and is ignored."""
         cfg = C.cfg
         split = cfg.TRAIN if train else cfg.TEST
         name = "TRAIN" if train else "TEST"
         static_pre = getattr(cfg.STATIC, f"{name}_PRE_NMS_TOP_N")
         static_post = getattr(cfg.STATIC, f"{name}_POST_NMS_TOP_N")
-        if cfg.TEST.INT8 and not train:
-            raise NotImplementedError(
-                f"TEST.INT8: the port runs the cascade in float only (NET.TRUNK "
-                f"{cfg.NET.TRUNK!r})")
         kw = dict(
             canvas=tuple(cfg.STATIC.CANVAS),
             feat_stride=cfg.STATIC.FEAT_STRIDE,
@@ -164,6 +167,7 @@ class MNCArch:
             nms_chunk=int(cfg.STATIC.NMS_CHUNK) or (512 if train else 256),
             trunk_frozen=int(cfg.NET.TRUNK_FROZEN),
             fused_block1=bool(cfg.NET.FUSED_BLOCK1),
+            int8_inference=bool(cfg.TEST.INT8) and not train,
         )
         kw.update(overrides)
         return cls(**kw)
@@ -346,10 +350,13 @@ class MNC(nn.Module):
         ``bbox_pred``, FrozenBN scales of ones and zeros on every ``bn3``).
         Load trained or bridged weights with ``load_state_dict``.
       train: ``False`` (serving): the weights are held in
-        ``arch.compute_dtype`` and take no gradient.  ``True``: the weights
-        are f32 master parameters that take gradients, every layer casts
-        them to ``arch.compute_dtype`` in its forward (the JAX package's
-        ``param_dtype=float32``), and the module is in training mode.
+        ``arch.compute_dtype`` and take no gradient; under
+        ``arch.int8_inference`` the int8 layers' weights and biases stay f32,
+        since they are quantized from the f32 values, as in the JAX package.
+        ``True``: the weights are f32 master parameters that take gradients,
+        every layer casts them to ``arch.compute_dtype`` in its forward (the
+        JAX package's ``param_dtype=float32``), and the module is in
+        training mode.
     """
 
     def __init__(self, arch: MNCArch = MNCArch(), device=None, seed: int = 0,
@@ -359,26 +366,28 @@ class MNC(nn.Module):
         a = arch
         self.arch = a
         cd = a.compute_dtype
+        q = a.int8_inference  # no gradient passes the int8 layers
         if a.trunk == "vgg16":
-            self.trunk, c = VGG16Trunk(cd, a.trunk_frozen, a.fused_block1), 512
+            self.trunk, c = VGG16Trunk(cd, a.trunk_frozen, a.fused_block1, q), 512
         elif a.trunk in {f"resnet{d}" for d in _DEPTHS}:
             depth = int(a.trunk[len("resnet"):])
-            self.trunk = ResNetTrunk(depth, cd, a.trunk_frozen, a.resnet_stride_in_3x3)
+            self.trunk = ResNetTrunk(depth, cd, a.trunk_frozen, a.resnet_stride_in_3x3, q)
             c = self.trunk.out_channels
         else:
             raise ValueError(f"unknown trunk {a.trunk!r}")
         self.rpn_head = RPNHead(a.num_anchors, c, compute_dtype=cd)
-        self.mask_head = MaskHead(a.warp_hw * a.warp_hw * c, a.mask_fc_dim, a.mask_size, cd)
+        self.mask_head = MaskHead(a.warp_hw * a.warp_hw * c, a.mask_fc_dim, a.mask_size, cd,
+                                  q)
         if a.roi_conv5:
             if a.trunk == "vgg16":
                 raise ValueError("NET.ROI_CONV5 is the ResNet per-RoI conv5 head; "
                                  f"the trunk is {a.trunk!r}")
             self.classify_head = ConvRoIHead(a.num_classes, depth, c, cd,
-                                             a.resnet_stride_in_3x3)
+                                             a.resnet_stride_in_3x3, q)
         else:
             self.classify_head = ClassifyHead(a.pooled_hw * a.pooled_hw * c, a.num_classes,
                                               a.fc_dim, a.warp_hw // a.pooled_hw, cd,
-                                              dual_pathway=a.dual_pathway)
+                                              dual_pathway=a.dual_pathway, int8=q)
         gen = torch.Generator().manual_seed(seed)
         for mod_name, mod in self.named_modules():
             if isinstance(mod, FrozenBN):
@@ -401,7 +410,9 @@ class MNC(nn.Module):
         self.to(dev)
         if not train:
             for m in (self.trunk, self.rpn_head, self.mask_head, self.classify_head):
-                m.to(cd)
+                for mod in m.modules():
+                    if not isinstance(mod, QUANT_LAYERS):
+                        mod._apply(lambda t: t.to(cd), recurse=False)
         if dev.type == "cuda":  # cuDNN's NHWC kernels for the NHWC convolutions
             for m in (self.trunk, self.rpn_head, self.classify_head):
                 m.to(memory_format=torch.channels_last)

@@ -15,8 +15,13 @@ whose strides are channels-last (cuDNN's NHWC kernels on the card).  Every
 layer casts its parameters to ``compute_dtype`` in ``forward``, as
 ``models/vgg.py`` does.  FrozenBN keeps the JAX package's order of
 operations, ``x * scale + bias`` with each step rounded to the compute
-dtype; it is not folded into the convolutions.  The int8 variant is not
-ported.
+dtype; it is not folded into the convolutions.  Under ``int8``
+(``TEST.INT8``, inference only) every convolution — the stem, the 1×1 and
+3×3 convolutions at stride 1 and 2 and the projections, in the trunk and in
+the conv5 head — is a :class:`~mnc_tpu_torch.ops.quant.ConvInt8` with the
+same parameters; FrozenBN, the residual add and the ReLUs are unchanged.
+The head's convolutions take one activation scale over all the RoIs they
+are given (B·N in ``MNC.apply_batch``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from torch import nn
 from mnc_tpu_torch.models.heads import linear_cast
 from mnc_tpu_torch.models.vgg import conv_cast
 from mnc_tpu_torch.ops.mask_pooling import mask_pooling
+from mnc_tpu_torch.ops.quant import ConvInt8
 
 _DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -52,8 +58,8 @@ class FrozenBN(nn.Module):
         return x * self.scale.to(cd).view(1, -1, 1, 1) + self.bias.to(cd).view(1, -1, 1, 1)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int, int8: bool = False) -> nn.Conv2d:
+    return (ConvInt8 if int8 else nn.Conv2d)(cin, cout, k, stride, padding=k // 2, bias=False)
 
 
 class Bottleneck(nn.Module):
@@ -63,19 +69,20 @@ class Bottleneck(nn.Module):
     v1.5 (stride on the 3×3, torchvision's checkpoints)."""
 
     def __init__(self, cin: int, features: int, stride: int = 1, project: bool = False,
-                 compute_dtype: torch.dtype = torch.bfloat16, stride_in_3x3: bool = False):
+                 compute_dtype: torch.dtype = torch.bfloat16, stride_in_3x3: bool = False,
+                 int8: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         s1, s2 = (1, stride) if stride_in_3x3 else (stride, 1)
         f, cd = features, compute_dtype
-        self.conv1 = _conv(cin, f, 1, s1)
+        self.conv1 = _conv(cin, f, 1, s1, int8)
         self.bn1 = FrozenBN(f, cd)
-        self.conv2 = _conv(f, f, 3, s2)
+        self.conv2 = _conv(f, f, 3, s2, int8)
         self.bn2 = FrozenBN(f, cd)
-        self.conv3 = _conv(f, 4 * f, 1, 1)
+        self.conv3 = _conv(f, 4 * f, 1, 1, int8)
         self.bn3 = FrozenBN(4 * f, cd, zero_scale=True)
         if project:
-            self.proj = _conv(cin, 4 * f, 1, stride)
+            self.proj = _conv(cin, 4 * f, 1, stride, int8)
             self.bn_proj = FrozenBN(4 * f, cd)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -88,12 +95,12 @@ class Bottleneck(nn.Module):
 
 
 def _stage(module: nn.Module, name: str, n_blocks: int, cin: int, features: int, stride: int,
-           compute_dtype: torch.dtype, stride_in_3x3: bool) -> list:
+           compute_dtype: torch.dtype, stride_in_3x3: bool, int8: bool) -> list:
     """Adds blocks ``{name}_block{i}`` to ``module``; returns them."""
     blocks = []
     for i in range(n_blocks):
         blk = Bottleneck(cin if i == 0 else 4 * features, features, stride if i == 0 else 1,
-                         i == 0, compute_dtype, stride_in_3x3)
+                         i == 0, compute_dtype, stride_in_3x3, int8)
         setattr(module, f"{name}_block{i}", blk)
         blocks.append(blk)
     return blocks
@@ -109,17 +116,17 @@ class ResNetTrunk(nn.Module):
     out_channels = 1024
 
     def __init__(self, depth: int = 101, compute_dtype: torch.dtype = torch.bfloat16,
-                 frozen_stages: int = 1, stride_in_3x3: bool = False):
+                 frozen_stages: int = 1, stride_in_3x3: bool = False, int8: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.frozen_stages = frozen_stages
-        self.conv1 = _conv(3, 64, 7, 2)
+        self.conv1 = _conv(3, 64, 7, 2, int8)
         self.bn1 = FrozenBN(64, compute_dtype)
         cin = 64
         self.stages = []  # plain lists: the blocks are registered by name above
         for s, (n_blocks, f) in enumerate(zip(_DEPTHS[depth][:3], (64, 128, 256))):
             self.stages.append(_stage(self, f"stage{s + 2}", n_blocks, cin, f,
-                                      1 if s == 0 else 2, compute_dtype, stride_in_3x3))
+                                      1 if s == 0 else 2, compute_dtype, stride_in_3x3, int8))
             cin = 4 * f
 
     def _frozen(self, stage: int):
@@ -145,11 +152,12 @@ class ConvRoIHead(nn.Module):
     (``NET.ROI_CONV5``); it has no dropout."""
 
     def __init__(self, num_classes: int = 21, depth: int = 101, in_channels: int = 1024,
-                 compute_dtype: torch.dtype = torch.bfloat16, stride_in_3x3: bool = False):
+                 compute_dtype: torch.dtype = torch.bfloat16, stride_in_3x3: bool = False,
+                 int8: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.blocks = _stage(self, "stage5", _DEPTHS[depth][3], in_channels, 512, 2,
-                             compute_dtype, stride_in_3x3)
+                             compute_dtype, stride_in_3x3, int8)
         self.cls_score = nn.Linear(2048, num_classes)
         self.bbox_pred = nn.Linear(2048, 4 * num_classes)
 

@@ -15,8 +15,12 @@ package's ``stop_gradient`` on their activations: their parameters get no
 gradient (the optimizer still decays their kernels).  ``fused_block1`` runs
 block 1 through :func:`mnc_tpu_torch.ops.block1.fused_block1` when the
 shape rule holds (H % 8 == 0 and W % 2 == 0, the JAX package's rule); any
-other shape takes the unfused layers, whatever the device.  The
-space-to-depth and int8 variants of the JAX package are not ported.
+other shape takes the unfused layers, whatever the device.  ``int8``
+(``TEST.INT8``, inference only) makes every convolution a
+:class:`~mnc_tpu_torch.ops.quant.ConvInt8` (kernel E on the card) with the
+same parameters; ReLU and the pools are unchanged, and ``fused_block1`` is
+then ignored, as in the JAX package.  The space-to-depth variant of the JAX
+package (the same math in another layout of block 1) is not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mnc_tpu_torch.ops.block1 import fused_block1
+from mnc_tpu_torch.ops.quant import ConvInt8
 
 # (name, channels) per block; pools come between blocks.
 VGG16_BLOCKS = (
@@ -40,7 +45,10 @@ VGG16_BLOCKS = (
 
 
 def conv_cast(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``conv`` applied with its weight and bias (if any) cast to ``dtype``."""
+    """``conv`` applied with its weight and bias (if any) cast to ``dtype``;
+    an int8 layer quantizes ``x`` in ``dtype`` and returns ``dtype``."""
+    if isinstance(conv, ConvInt8):
+        return conv(x.to(dtype))
     bias = None if conv.bias is None else conv.bias.to(dtype)
     return F.conv2d(x, conv.weight.to(dtype), bias, conv.stride, conv.padding)
 
@@ -50,15 +58,16 @@ class VGG16Trunk(nn.Module):
     max pools after blocks 1-4."""
 
     def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
-                 frozen_blocks: int = 2, fused_block1: bool = False):
+                 frozen_blocks: int = 2, fused_block1: bool = False, int8: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.frozen_blocks = frozen_blocks
-        self.fused_block1 = fused_block1
+        self.fused_block1 = fused_block1 and not int8
+        conv = ConvInt8 if int8 else nn.Conv2d
         cin = 3
         for block in VGG16_BLOCKS:
             for name, ch in block:
-                setattr(self, name, nn.Conv2d(cin, ch, 3, padding=1))
+                setattr(self, name, conv(cin, ch, 3, padding=1))
                 cin = ch
 
     def _block(self, b: int, x: torch.Tensor) -> torch.Tensor:

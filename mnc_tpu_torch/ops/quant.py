@@ -1,0 +1,193 @@
+"""int8 inference (``TEST.INT8``) — port of ``mnc_tpu/ops/quant.py``.
+
+Under ``TEST.INT8`` the trunk convolutions (both trunks, and the per-RoI
+conv5 head) and the ``fc_mask``/``fc6``/``fc7`` layers run s8 × s8 → s32:
+
+- **weights**: symmetric per-output-channel int8, quantized from the
+  unchanged float parameter (:func:`quant_weight`).  :class:`ConvInt8` and
+  :class:`DenseInt8` are ``nn.Conv2d`` and ``nn.Linear`` with the same
+  ``weight`` and ``bias``, so every checkpoint, npz bridge and importer
+  applies unchanged; the model holds these parameters in f32, as the JAX
+  package quantizes its f32 parameters.
+- **activations**: symmetric dynamic (absmax) scales in the compute dtype
+  (:func:`quant_act`): one per tensor for a convolution and one per row
+  (RoI) for a dense layer.  A convolution's one scale covers the whole
+  tensor it is given: the trunk runs on all B canvases of a batch at once
+  and the conv5 head on all B·N RoIs, as in the JAX package's
+  ``apply_batch``, so under int8 an image's outputs depend on the range of
+  its batchmates.  (The JAX module's docstring says "per-image under the
+  pipeline's vmap"; its batched path has no vmap around the trunk.)
+
+The product accumulates exactly in int32 and is dequantized as
+``acc.to(f32) * (xs * ws) + bias`` — a multiply, then a separate add — and
+rounded to the compute dtype, the JAX package's order.  Both layers go
+through the custom op ``mnc::gemm_s8``, which takes the int8 activations,
+their scale and the FLOAT weight, and quantizes the weight inside (cached
+per weight version, :func:`quantized_weight`), so that ``torch.export``
+sees one opaque node: its CUDA implementation is kernel E
+(``csrc/gemm_s8.cu``, bit-identical to the plain version), its CPU
+implementation the plain version :func:`gemm_s8_plain`, whose float64
+convolution or matmul of the int8 values is exact (every partial sum is an
+integer below 2^53; the largest, 127² · 4608 ≈ 7.4·10⁷, is below 2^31 too).
+The activation quantization is plain PyTorch on either device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.weak import WeakIdKeyDictionary
+
+_EPS = 1e-8
+
+
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127`` with IEEE division: by a Python scalar, PyTorch's CUDA
+    kernels multiply by its reciprocal instead (an ulp off)."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
+def quant_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float weight → (int8 weight, f32 per-output-channel scale), as the
+    JAX package's ``_quant_weight``.  A conv weight (O, I, KH, KW) comes
+    back as (O, KH, KW, I), kernel E's layout; a Linear weight (N, K) as
+    it is."""
+    w = w.detach().float()
+    scale = _div127(torch.amax(w.abs(), dim=tuple(range(1, w.dim()))).clamp_min(_EPS))
+    q = torch.round(w / scale.view(-1, *([1] * (w.dim() - 1)))).clamp_(-127, 127)
+    q = q.to(torch.int8)
+    if q.dim() == 4:
+        q = q.permute(0, 2, 3, 1)
+    return q.contiguous(), scale
+
+
+def quant_act(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Activations in the compute dtype → (int8, f32 scale), as the JAX
+    package's ``_quant_act``: the absmax over the whole tensor (or over the
+    last axis of each row, kept as a (..., 1) column), floored at 1e-8,
+    divided by 127 in the compute dtype; then ``round(x / scale)`` (half to
+    even) clamped to ±127."""
+    if per_row:
+        lo, hi = torch.aminmax(x, dim=-1, keepdim=True)
+    else:
+        lo, hi = torch.aminmax(x)
+    scale = _div127(torch.maximum(-lo, hi).clamp_min(_EPS))
+    q = torch.round(x / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+_QUANTIZED = WeakIdKeyDictionary()
+
+
+def quantized_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quant_weight`, cached per weight: the cache holds the weight
+    weakly and is stamped with its storage, version (which every in-place
+    update bumps), dtype and shape, so a reloaded or moved weight is
+    quantized anew.  Inference tensors keep no version counter and are
+    quantized on every call."""
+    if w.is_inference():
+        return quant_weight(w)
+    stamp = (w.data_ptr(), w.device, w._version, w.dtype, tuple(w.shape))
+    hit = _QUANTIZED.get(w)
+    if hit is not None and hit[0] == stamp:
+        return hit[1]
+    out = quant_weight(w)
+    _QUANTIZED[w] = (stamp, out)
+    return out
+
+
+def dequantize(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+               bias: torch.Tensor | None, out_dtype: torch.dtype) -> torch.Tensor:
+    """int32 sums → ``acc.float() * (xs * ws) + bias`` in ``out_dtype``."""
+    y = acc.float() * (xs * ws)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
+def gemm_s8_plain(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                  bias: torch.Tensor | None, stride: int = 1, padding: int = 0,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain twin of kernel E.  A convolution: xq (B, H, W, C) int8, wq
+    (Cout, KH, KW, C) int8, xs one f32 scale → (B, OH, OW, Cout); a dense
+    layer: xq (M, K) int8, wq (N, K) int8, xs (M, 1) f32 → (M, N).  ws (N,)
+    f32, bias (N,) or None.  The int8 products are summed in float64, which
+    is exact, then cast to int32 and dequantized by :func:`dequantize`."""
+    if xq.dim() == 4:
+        # cuDNN may pick an FFT or Winograd algorithm, whose sums are not exact
+        with torch.backends.cudnn.flags(enabled=False):
+            acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), wq.permute(0, 3, 1, 2).double(),
+                           None, stride, padding)
+        acc = acc.permute(0, 2, 3, 1)
+    else:
+        acc = xq.double() @ wq.double().T
+    return dequantize(acc.to(torch.int32), xs, ws, bias, out_dtype).contiguous()
+
+
+@torch.library.custom_op("mnc::gemm_s8", mutates_args=(), device_types="cpu")
+def gemm_s8_op(xq: torch.Tensor, xs: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor | None, stride: int, padding: int,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel E as a custom op: int8 activations ``xq`` (NHWC, or (M, K))
+    and their f32 scale ``xs``, the FLOAT weight (OIHW, or (N, K)) and bias
+    of the layer → its output in ``out_dtype``."""
+    wq, ws = quantized_weight(weight)
+    return gemm_s8_plain(xq, wq, xs, ws, bias, stride, padding, out_dtype)
+
+
+@gemm_s8_op.register_kernel("cuda")
+def _gemm_s8_op_cuda(xq, xs, weight, bias, stride, padding, out_dtype):
+    from mnc_tpu_torch.kernels import gemm_s8_cuda
+
+    wq, ws = quantized_weight(weight)
+    return gemm_s8_cuda(xq, wq, xs, ws, None if bias is None else bias.float(), stride,
+                        padding, out_dtype)
+
+
+@gemm_s8_op.register_fake
+def _gemm_s8_op_fake(xq, xs, weight, bias, stride, padding, out_dtype):
+    if xq.dim() == 4:
+        b, h, w, _ = xq.shape
+        k = weight.shape[-1]
+        oh, ow = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+        return xq.new_empty((b, oh, ow, weight.shape[0]), dtype=out_dtype)
+    return xq.new_empty((xq.shape[0], weight.shape[0]), dtype=out_dtype)
+
+
+def conv_int8(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+              stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """An int8 convolution of NHWC ``x`` (compute dtype) with an OIHW float
+    weight (square kernel, symmetric padding) → NHWC in ``x.dtype``: one
+    activation scale over all of ``x``."""
+    xq, xs = quant_act(x, per_row=False)
+    return gemm_s8_op(xq.contiguous(), xs, weight, bias, stride, padding, x.dtype)
+
+
+def dense_int8(x: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor | None) -> torch.Tensor:
+    """An int8 dense layer: (M, K) ``x`` (compute dtype), (N, K) float weight
+    → (M, N) in ``x.dtype``, with one activation scale per row."""
+    xq, xs = quant_act(x, per_row=True)
+    return gemm_s8_op(xq.contiguous(), xs, weight, bias, 1, 0, x.dtype)
+
+
+class ConvInt8(nn.Conv2d):
+    """``nn.Conv2d`` (square kernel, symmetric padding, no dilation or
+    groups) on the int8 path.  Like the float layers of the trunks it takes
+    and returns an NCHW view of channels-last data, in the compute dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv_int8(x.permute(0, 2, 3, 1), self.weight, self.bias, self.stride[0],
+                      self.padding[0])
+        return y.permute(0, 3, 1, 2)
+
+
+class DenseInt8(nn.Linear):
+    """``nn.Linear`` on the int8 path: (M, K) in the compute dtype → (M, N)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_int8(x, self.weight, self.bias)
+
+
+QUANT_LAYERS = (ConvInt8, DenseInt8)

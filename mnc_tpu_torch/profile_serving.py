@@ -20,7 +20,11 @@ canvases:
 - the device's busy time in one more request, traced by ``torch.profiler``
   (the sum of kernel times on the one stream), and the idle share of the
   median wall time that leaves;
-- the kernels that take the most device time, by name.
+- the kernels that take the most device time, by name;
+- under ``TEST.INT8`` (``--set TEST.INT8 True``), each int8 layer of the
+  request on its own: the device time of its activation quantization
+  (``quant_act``: absmax, divide, round, clamp, cast; plain PyTorch) and of
+  its kernel E launch, on the inputs the request gave it (CUDA events).
 
 It needs a GPU and exits with an error without one.
 """
@@ -70,6 +74,60 @@ def _stages(model, post, images, infos):
             ("bridge+heads pass 2", heads2), ("postprocess", postprocess)]
 
 
+def _event_ms(fn, iters=5) -> float:
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def int8_layer_split(model, stages) -> None:
+    """Times the activation quantization and the kernel E launch of every
+    int8 layer on the inputs one request hands it (the first call of each
+    layer: the first head pass; the second pass has the same shapes)."""
+    from mnc_tpu_torch.kernels import gemm_s8_cuda
+    from mnc_tpu_torch.ops.quant import QUANT_LAYERS, ConvInt8, quant_act, quantized_weight
+
+    seen: dict = {}
+
+    def keep_first(mod, args, name):
+        if name not in seen:
+            seen[name] = (mod, args[0].clone())
+
+    hooks = [m.register_forward_pre_hook(lambda mod, args, name=name: keep_first(mod, args,
+                                                                                 name))
+             for name, m in model.named_modules() if isinstance(m, QUANT_LAYERS)]
+    try:
+        for _, fn in stages:
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    rows, tq, te = [], 0.0, 0.0
+    for name, (mod, x) in seen.items():
+        conv = isinstance(mod, ConvInt8)
+        x = x.permute(0, 2, 3, 1) if conv else x
+        xq, xs = quant_act(x, per_row=not conv)
+        xq = xq.contiguous()
+        wq, ws = quantized_weight(mod.weight)
+        bias = None if mod.bias is None else mod.bias.float()
+        args = (mod.stride[0], mod.padding[0]) if conv else (1, 0)
+        q_ms = _event_ms(lambda: quant_act(x, per_row=not conv))
+        e_ms = _event_ms(lambda: gemm_s8_cuda(xq, wq, xs, ws, bias, *args, x.dtype))
+        rows.append((name, tuple(x.shape), q_ms, e_ms))
+        tq, te = tq + q_ms, te + e_ms
+    print(f"int8 layers of one pass (trunk once, heads once; the request runs the heads "
+          f"twice), device ms each, CUDA events: quant_act {tq:.3f} ms, kernel E "
+          f"{te:.3f} ms in all")
+    for name, shape, q_ms, e_ms in rows:
+        print(f"  {name:36s} {str(shape):24s} quant_act {q_ms:8.3f}  E {e_ms:8.3f}")
+
+
 @torch.inference_mode()
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -92,8 +150,13 @@ def main() -> None:
     print(f"device: {smi}")
     arch = MNCArch.from_cfg(fused_block1=args.fused_block1)
     print(f"arch: {arch.trunk}, roi_conv5={arch.roi_conv5}, {arch.num_classes} classes, "
-          f"pre-NMS {arch.pre_nms_top_n}, post-NMS {arch.post_nms_top_n}, {arch.compute_dtype}")
-    model = MNC(arch, device="cuda", seed=0)
+          f"pre-NMS {arch.pre_nms_top_n}, post-NMS {arch.post_nms_top_n}, {arch.compute_dtype}"
+          f", int8_inference={arch.int8_inference}")
+    # made outside inference mode, as a server makes it: the int8 layers
+    # quantize their weights once per weight version (an inference tensor
+    # has no version counter, and would be quantized on every call)
+    with torch.inference_mode(False):
+        model = MNC(arch, device="cuda", seed=0)
     post = PostCfg.from_cfg(dets_per_class=16)
     g = torch.Generator(device="cuda").manual_seed(1)
     images = torch.randint(0, 256, (args.batch, *arch.canvas, 3), generator=g,
@@ -150,6 +213,8 @@ def main() -> None:
     print("top kernels by device time in the profiled request:")
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    if arch.int8_inference:
+        int8_layer_split(model, _stages(model, post, images, infos))
 
 
 if __name__ == "__main__":

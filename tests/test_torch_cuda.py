@@ -12,7 +12,8 @@ Tolerances: NMS keeps identical; RoI warp ≤1e-5·max|F| in f32 and
 2 bf16 ulps of max|F| in bf16; its gradients ≤1e-5 (features) and ≤1e-4
 (boxes) of each gradient's max in f32; paste bit for bit except pixels whose
 f32 product lies within 1e-5 of the threshold; block 1 within
-``block1_tolerance`` with at least 0.999 of the elements bit-identical.
+``block1_tolerance`` with at least 0.999 of the elements bit-identical; the
+int8 GEMM (kernel E) bit for bit.
 """
 
 import pytest
@@ -427,3 +428,100 @@ def test_exported_fused_block1_program_on_the_card(gen):
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def _int8(gen, shape, extreme=False):
+    """Random int8 values in [-127, 127], or only -127 and 127."""
+    if extreme:
+        bits = torch.randint(0, 2, shape, generator=gen, device="cuda", dtype=torch.int16)
+        return (bits * 254 - 127).to(torch.int8)
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int16).to(torch.int8)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts one byte past a 16-byte
+    boundary: the kernel takes its byte loaders."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (x shape, Cout, k, stride, pad): 1 row, a tile plus one row, K = 16, odd and
+# 1-wide Cout, stride 3 with a pad of 2, a 1x1 map, Cin 48 (3 chunks a tap)
+GEMM_S8_CONVS = [((1, 1, 1, 16), 8, 1, 1, 0), ((1, 3, 43, 16), 129, 3, 1, 1),
+                 ((2, 9, 11, 48), 1, 3, 3, 2), ((3, 5, 7, 3), 21, 5, 2, 2),
+                 ((1, 1, 1, 32), 64, 3, 1, 1), ((2, 16, 16, 64), 256, 1, 2, 0)]
+
+
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("case", range(len(GEMM_S8_CONVS)))
+def test_gemm_s8_conv_matches_plain(gen, case, extreme, unaligned):
+    from mnc_tpu_torch.ops.quant import gemm_s8_plain
+
+    shape, cout, k, stride, pad = GEMM_S8_CONVS[case]
+    xq = _int8(gen, shape, extreme)
+    wq = _int8(gen, (cout, k, k, shape[-1]), extreme)
+    if unaligned:
+        xq, wq = _unaligned(xq), _unaligned(wq)
+    xs = torch.rand((), generator=gen, device="cuda") * 0.01
+    ws = torch.rand(cout, generator=gen, device="cuda") * 0.01
+    for bias, dtype in ((None, torch.float32), (torch.randn(cout, generator=gen,
+                                                            device="cuda"), torch.bfloat16)):
+        got = kernels.gemm_s8_cuda(xq, wq, xs, ws, bias, stride, pad, dtype)
+        want = gemm_s8_plain(xq, wq, xs, ws, bias, stride, pad, dtype)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (17, 32, 3), (129, 4096, 130), (300, 8, 4096),
+                                   (5, 100, 7)])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_gemm_s8_dense_matches_plain(gen, m, k, n, extreme):
+    from mnc_tpu_torch.ops.quant import gemm_s8_plain
+
+    xq, wq = _int8(gen, (m, k), extreme), _int8(gen, (n, k), extreme)
+    xs = torch.rand(m, 1, generator=gen, device="cuda") * 0.01
+    ws = torch.rand(n, generator=gen, device="cuda") * 0.01
+    bias = torch.randn(n, generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        got = kernels.gemm_s8_cuda(xq, wq, xs, ws, bias, 1, 0, dtype)
+        assert torch.equal(got, gemm_s8_plain(xq, wq, xs, ws, bias, 1, 0, dtype))
+
+
+def test_gemm_s8_kernel_rejects_bad_inputs(gen):
+    xq = _int8(gen, (1, 4, 4, 16))
+    ws = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="does not match"):
+        kernels.gemm_s8_cuda(xq, _int8(gen, (8, 3, 3, 32)), torch.ones((), device="cuda"), ws,
+                             None)
+    with pytest.raises(ValueError, match="one activation scale"):
+        kernels.gemm_s8_cuda(xq, _int8(gen, (8, 3, 3, 16)), torch.ones(2, device="cuda"), ws,
+                             None)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.gemm_s8_cuda(xq.float(), _int8(gen, (8, 3, 3, 16)),
+                             torch.ones((), device="cuda"), ws, None)
+    with pytest.raises(ValueError, match="expected"):
+        kernels.gemm_s8_cuda(_int8(gen, (5, 16)), _int8(gen, (8, 16)),
+                             torch.ones(5, device="cuda"), ws, None)
+
+
+def test_int8_layers_follow_in_place_weight_updates(gen):
+    """The quantized weight is cached per weight version on the card too:
+    an in-place update is seen by the next call, which equals the CPU's."""
+    from mnc_tpu_torch.ops.quant import ConvInt8, DenseInt8
+
+    conv = ConvInt8(16, 24, 3, 1, 1).cuda()
+    dense = DenseInt8(40, 12).cuda()
+    x = torch.randn(2, 16, 9, 7, generator=gen, device="cuda").to(
+        memory_format=torch.channels_last)
+    v = torch.randn(5, 40, generator=gen, device="cuda")
+    with torch.no_grad():
+        for _ in range(2):
+            assert torch.equal(conv(x).cpu(), conv.cpu()(x.cpu()))
+            assert torch.equal(dense(v).cpu(), dense.cpu()(v.cpu()))
+            conv.cuda(), dense.cuda()
+            conv.weight.mul_(-1.5)
+            dense.weight.add_(0.25)

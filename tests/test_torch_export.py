@@ -2,7 +2,7 @@
 
 - ``torch.library.opcheck`` on the CPU implementation of each custom op
   (``mnc::roi_warp``, ``mnc::nms_keep``, ``mnc::paste_binarize``,
-  ``mnc::block1``): schema (no aliasing, no mutation), fake shapes and
+  ``mnc::block1``, ``mnc::gemm_s8``): schema (no aliasing, no mutation), fake shapes and
   dtypes against the real outputs, registration, and the op under
   AOTAutograd; and no output shares storage with an input, also where NMS
   suppresses nothing.
@@ -15,6 +15,9 @@
   batched artifact or another device before it loads anything;
   ``ExportedPipeline.detect`` equal to ``MNCPipeline.detect``, every key
   bit for bit.
+- ``export_model --set TEST.INT8 True``: an artifact whose int8 layers are
+  ``mnc::gemm_s8`` nodes (the fake gives their shapes), whose detections
+  equal the eager int8 pipeline's bit for bit.
 """
 
 import io
@@ -32,6 +35,7 @@ from mnc_tpu_torch.models.mnc import MNC, MNCArch
 from mnc_tpu_torch.ops.block1 import block1_op
 from mnc_tpu_torch.ops.masks import _paste_axis_weights, paste_binarize_op
 from mnc_tpu_torch.ops.nms import nms_keep_op
+from mnc_tpu_torch.ops.quant import gemm_s8_op, quant_act
 from mnc_tpu_torch.ops.roi_warp import roi_warp_op
 from mnc_tpu_torch.pipeline.export import (ExportedPipeline, deserialize_inference,
                                            export_inference, exported_meta, save_exported)
@@ -65,6 +69,16 @@ def _op_cases():
         "nms_keep nothing suppressed": (nms_keep_op, (far.contiguous(),
                                                       torch.ones(1, 5, dtype=torch.bool), 0.5, 0)),
         "paste_binarize": (paste_binarize_op, (wy, torch.rand(6, 7, 7, generator=g), wxt, 0.4)),
+        "gemm_s8 conv bf16": (gemm_s8_op, (
+            *quant_act(torch.randn(2, 5, 6, 16, generator=g).to(torch.bfloat16), False),
+            torch.randn(8, 16, 3, 3, generator=g), torch.randn(8, generator=g), 1, 1,
+            torch.bfloat16)),
+        "gemm_s8 conv stride 2, no bias": (gemm_s8_op, (
+            *quant_act(torch.randn(1, 9, 7, 3, generator=g), False),
+            torch.randn(4, 3, 7, 7, generator=g), None, 2, 3, torch.float32)),
+        "gemm_s8 dense": (gemm_s8_op, (*quant_act(torch.randn(7, 40, generator=g), True),
+                                       torch.randn(12, 40, generator=g),
+                                       torch.randn(12, generator=g), 1, 0, torch.float32)),
         "block1": (block1_op, (torch.randn(2, 8, 6, 3, generator=g) * 50,
                                torch.randn(64, 3, 3, 3, generator=g) * 0.1,
                                torch.randn(64, generator=g),
@@ -198,3 +212,53 @@ def test_fused_block1_model_exports_with_block1_as_one_node():
     with torch.inference_mode():
         got = program.module()(torch.from_numpy(imgs), torch.from_numpy(infos))
     _assert_equal(got, want)
+
+
+def test_int8_model_exports_with_gemm_s8_nodes(tmp_path):
+    """``export_model --program --set TEST.INT8 True`` on an npz: the
+    artifact holds the 13 trunk convolutions and fc_mask, fc6 and fc7 of
+    both head passes as ``mnc::gemm_s8`` nodes, and ``ExportedPipeline``
+    detects what the eager int8 pipeline that ``serve`` builds from the same
+    files detects, every key bit for bit."""
+    from mnc_tpu_torch.tools import export_model, serve
+    from mnc_tpu_torch.utils.checkpoint import jax_params_from_state_dict, save_npz
+
+    sets = ["STATIC.CANVAS", "(64, 96)", "NET.ANCHOR_SCALES", "(1, 2, 4)",
+            "NET.NUM_CLASSES", "4", "MASK_SIZE", "9", "NET.WARP_HW", "4", "NET.FC_DIM", "32",
+            "NET.MASK_FC_DIM", "16", "NET.COMPUTE_DTYPE", "float32",
+            "STATIC.TEST_PRE_NMS_TOP_N", "32", "STATIC.TEST_POST_NMS_TOP_N", "8",
+            "TEST.RPN_MIN_SIZE", "2", "TEST.SCALES", "(48,)", "TEST.MAX_SIZE", "96",
+            "TEST.INT8", "True"]
+    saved = cfg.clone()
+    try:
+        cfg.TEST.INT8 = False  # the npz is the float model's: the same parameters
+        model = MNC(MNCArch(compute_dtype=torch.float32,
+                            **dict(SMALL, canvas=(64, 96), anchor_scales=(1, 2, 4),
+                                   fc_dim=32, mask_fc_dim=16, pre_nms_top_n=32,
+                                   post_nms_top_n=8)), device="cpu", seed=4)
+        npz, out, program = (str(tmp_path / n) for n in ("in.npz", "ex.npz", "int8.pt2"))
+        save_npz(npz, jax_params_from_state_dict(model.state_dict()),
+                 {"bbox_pred_normalized": True})
+        with pytest.warns(UserWarning, match="CAPPED"):
+            assert export_model.main(["--npz", npz, "--out", out, "--program", program,
+                                      "--device", "cpu", "--set", *sets]) == 0
+        with pytest.warns(UserWarning, match="CAPPED"):
+            live = serve.load_pipeline(serve.parse_args(["--npz", out, "--device", "cpu",
+                                                         "--set", *sets]))
+        assert live.model.arch.int8_inference
+        with open(program, "rb") as f:
+            blob = f.read()
+        graph = torch.export.load(io.BytesIO(blob)).graph
+        targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+        assert targets.count("mnc.gemm_s8.default") == 13 + 2 * 3
+        exported = ExportedPipeline(blob)
+        rs = np.random.RandomState(6)
+        for h, w in ((60, 120), (48, 96)):
+            im = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            got, want = exported.detect(im), live.detect(im)
+            assert set(got) == set(want) and want["valid"].any()
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    finally:
+        cfg.clear()
+        cfg.update(saved)

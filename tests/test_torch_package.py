@@ -130,9 +130,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.block1_cuda(torch.zeros(1, 8, 8, 3, dtype=bf), torch.zeros(64, 32, dtype=bf),
                             torch.zeros(64, dtype=bf), torch.zeros(9, 64, 64, dtype=bf),
                             torch.zeros(64, dtype=bf))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.gemm_s8_cuda(torch.zeros(1, 4, 4, 16, dtype=torch.int8),
+                             torch.zeros(8, 3, 3, 16, dtype=torch.int8), torch.ones(()),
+                             torch.ones(8), None, 1, 1)
     assert kernels.launch_counts() == {"roi_warp_cuda": 0, "roi_warp_bwd_cuda": 0,
                                        "nms_keep_cuda": 0, "paste_binarize_cuda": 0,
-                                       "block1_cuda": 0}
+                                       "block1_cuda": 0, "gemm_s8_cuda": 0}
 
 
 def _keys(tree, prefix=""):

@@ -446,7 +446,11 @@ class _no_cap_warning:
 
 @pytest.mark.parametrize("trunk", ["vgg16", "resnet101"])
 def test_int8_is_still_refused(coco_cfg, trunk):
+    """Once refused, ``TEST.INT8`` now makes the test arch int8 on either
+    trunk; training never runs int8 (``tests/test_torch_quant*.py`` hold the
+    int8 path against the JAX package)."""
     C.cfg_from_list(["NET.TRUNK", trunk, "TEST.INT8", "True"])
-    with pytest.raises(NotImplementedError, match="TEST.INT8"):
-        MNCArch.from_cfg()
-    assert MNCArch.from_cfg(train=True).trunk == trunk  # training never runs int8
+    arch = MNCArch.from_cfg()
+    assert arch.int8_inference and arch.trunk == trunk
+    train_arch = MNCArch.from_cfg(train=True)
+    assert train_arch.trunk == trunk and not train_arch.int8_inference
