@@ -23,8 +23,10 @@ Phases, each printing its lines before the two JSON lines at the end:
    40x64 and 64x40 maps of conv5; fc6, fc7 and fc_mask on 1216 RoIs, fc6 on
    CFM's 300; the ResNet stem's K = 147, 1x1 and 3x3 at stride 1 and 2,
    the conv5 head's 14 -> 7; a small f32 shape with an odd Cout and a dense
-   K of 300), on random and on all-+-127 operands, bit for bit, and
-   ``quant_act`` on the card against the CPU,
+   K of 300; the ResNet stage-4 1x1 convolutions), on random and on
+   all-+-127 operands, bit for bit, and kernel F (the int8 activation
+   quantization) at the input of every int8 layer of both trunks against
+   ``quant_act`` in bf16 and f32, on random, edge-case and all-zero data,
    then timed (CUDA events, after warm-up) beside the plain version and,
    where one PyTorch call computes the same function, that call.  NMS, the
    paste (N = 400, the serving request, and N = 100), block 1 (B = 2 and
@@ -91,9 +93,11 @@ Phases, each printing its lines before the two JSON lines at the end:
       move by weight decay alone, bit for bit); then a small f32 model's
       ``cfm_detect`` and CFM train step and ``tools/test_net --segdb`` on
       ``synthetic_8``, card against CPU;
-   i. int8 serving (``TEST.INT8``, kernel E on every int8 layer): a.'s
-      VGG-16 with ``int8_inference`` against the bf16 model of the same
-      seed, 10 requests each, interleaved (median and worst ms); cls_prob
+   i. int8 serving (``TEST.INT8``, kernels F and E on every int8 layer):
+      a.'s VGG-16 with ``int8_inference`` against the bf16 model of the
+      same seed, 10 requests each, interleaved (median and worst ms, the
+      ratio beside ``INT8_RATIO_PREDICTED``, E's and F's launches per
+      request); cls_prob
       index by index against the bf16 cascade's (reported); an image's
       ``detect`` against the same image in a ``detect_many`` batch of 4 with
       wide-range batchmates (the batch-wide activation scale: the features
@@ -727,14 +731,15 @@ GEMM_S8_SHAPES = {
     "resnet 1x1/s2 proj stage3": ("conv", (4, 160, 256, 256), 512, 1, 2, 0, False, BF),
     "resnet 3x3/s2 v1.5 stage4": ("conv", (4, 80, 128, 256), 256, 3, 2, 1, False, BF),
     "resnet 3x3 stage4 (40x64)": ("conv", (4, 40, 64, 256), 256, 3, 1, 1, False, BF),
+    "resnet 1x1 stage4 1024->256 (40x64)": ("conv", (4, 40, 64, 1024), 256, 1, 1, 0, False,
+                                            BF),
+    "resnet 1x1 stage4 256->1024 (40x64)": ("conv", (4, 40, 64, 256), 1024, 1, 1, 0, False,
+                                            BF),
     "conv5 head 1x1/s2 proj (14->7)": ("conv", (1216, 14, 14, 1024), 2048, 1, 2, 0, False, BF),
     "conv5 head 3x3 (7x7)": ("conv", (1216, 7, 7, 512), 512, 3, 1, 1, False, BF),
     "small f32 conv (odd Cout)": ("conv", (2, 13, 17, 24), 21, 3, 1, 1, True, F32),
     "small f32 dense (K=300)": ("dense", (37, 300), 40, 1, 1, 0, True, F32),
 }
-# the shapes also run on all-+-127 operands, where every lane's product is the largest
-GEMM_S8_EXTREME = ("vgg conv1_1 (K=27)", "vgg conv5_2 (40x64)", "fc7 (M=1216)",
-                   "resnet stem 7x7/s2 (K=147)", "small f32 dense (K=300)")
 
 
 def _gemm_s8_inputs(g, kind, shape, cout, k, bias, dtype):
@@ -758,64 +763,80 @@ def _extreme(g, t):
     return (s * 254 - 127).to(torch.int8)
 
 
+def _plain_ms(fn):
+    """(result, device ms) of one call of fn, between CUDA events."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def check_gemm_s8(g):
     """Kernel E against gemm_s8_plain (float64 sums of the int8 values, exact)
     at every shape of the int8 serving paths, on random and on all-+-127
-    operands: the outputs must be bit-identical.  Then quant_act on the card
-    against the CPU, bit for bit, in bf16 and f32 (the scales feed both).
-    Timed per shape beside the plain version, the bound, and the library:
-    for the dense layers torch._int_mm and the same dequantization (the
-    same function); for a convolution there is no int8 convolution in
+    operands: the outputs must be bit-identical.  The weights are packed
+    once (pack_gemm_s8_weight), as the int8 layers cache them.  Timed per
+    shape beside the plain version, the bound, and the library: where E's
+    product is one matrix product (dense layers, 1x1 stride-1 convolutions
+    on their (M, C) view) torch._int_mm and the same dequantization (the same
+    function); for any other convolution there is no int8 convolution in
     PyTorch on CUDA, so library_ms is null and the float path's bf16 cuDNN
     convolution of the same shape is given beside it (another function)."""
     import torch.nn.functional as F
-    from mnc_tpu_torch.kernels import gemm_s8_cuda
-    from mnc_tpu_torch.ops.quant import dequantize, gemm_s8_plain, quant_act
+    from mnc_tpu_torch import kernels
+    from mnc_tpu_torch.ops.quant import dequantize, gemm_s8_plain
 
     shapes = {}
     for label, (kind, shape, cout, k, stride, pad, bias, dtype) in GEMM_S8_SHAPES.items():
         x, w, xq, xs, wq, ws, b = _gemm_s8_inputs(g, kind, shape, cout, k, bias, dtype)
         args = (stride, pad, dtype) if kind == "conv" else (1, 0, dtype)
-        got = gemm_s8_cuda(xq, wq, xs, ws, b, *args)
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        want = gemm_s8_plain(xq, wq, xs, ws, b, *args)
-        t1.record()
-        torch.cuda.synchronize()
-        p_ms = t0.elapsed_time(t1)
+        wp = kernels.pack_gemm_s8_weight(wq)
+        got = kernels.gemm_s8_cuda(xq, wq, xs, ws, b, *args, wp)
+        want, p_ms = _plain_ms(lambda: gemm_s8_plain(xq, wq, xs, ws, b, *args))
         diff = (got.float() - want.float()).abs().max().item()
         same = torch.equal(got, want)
         del want
-        extreme = ""
-        if label in GEMM_S8_EXTREME:
-            xe, we = _extreme(g, xq), _extreme(g, wq)
-            e_got = gemm_s8_cuda(xe, we, xs, ws, b, *args)
-            e_want = gemm_s8_plain(xe, we, xs, ws, b, *args)
-            e_same = torch.equal(e_got, e_want)
-            extreme = f"; all +-127 operands bit-identical: {e_same}"
-            same = same and e_same
-            diff = max(diff, (e_got.float() - e_want.float()).abs().max().item())
-            del xe, we, e_got, e_want
+        xe, we = _extreme(g, xq), _extreme(g, wq)
+        e_got = kernels.gemm_s8_cuda(xe, we, xs, ws, b, *args, kernels.pack_gemm_s8_weight(we))
+        e_want = gemm_s8_plain(xe, we, xs, ws, b, *args)
+        e_same = torch.equal(e_got, e_want)
+        same = same and e_same
+        diff = max(diff, (e_got.float() - e_want.float()).abs().max().item())
+        del xe, we, e_got, e_want
         m = got.numel() // cout
         kk = xq.shape[-1] * (k * k if kind == "conv" else 1)
-        k_ms = cuda_ms(lambda: gemm_s8_cuda(xq, wq, xs, ws, b, *args), iters=10)
+        c = xq.shape[-1]
+        if kind == "conv":
+            oh, ow = got.shape[1:3]
+            plan = kernels.plan_gemm_s8(m, cout, kk, c=c, kh=k, kw=k, stride=stride, pad=pad,
+                                        ow=ow, conv=True, aligned=xq.data_ptr() % 16 == 0)
+        else:
+            plan = kernels.plan_gemm_s8(m, cout, kk, c=c, kh=1, kw=1, stride=1, pad=0, ow=1,
+                                        conv=False, aligned=xq.data_ptr() % 16 == 0)
+        k_ms = cuda_ms(lambda: kernels.gemm_s8_cuda(xq, wq, xs, ws, b, *args, wp), iters=10)
         n_bytes = nbytes(xq, wq, xs, ws, got) + (nbytes(b) if b is not None else 0)
         bms, by = bound_ms(n_bytes, 2.0 * m * cout * kk, INT8_OP_PER_S)
         row = dict(kind=kind, x=list(shape), cout=cout, k=k, stride=stride, pad=pad,
-                   gmac=m * cout * kk / 1e9, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
-                   bound_by=by, bit_identical=same, max_abs_err=diff)
+                   gmac=m * cout * kk / 1e9, plan=f"{plan.mode} bn{plan.bn} split{plan.splits}",
+                   ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by, bit_identical=same,
+                   max_abs_err=diff)
+        one_mm = kind == "dense" or (k == 1 and stride == 1 and pad == 0)
         # torch._int_mm takes M > 16 and K, N multiples of 8
-        if kind == "dense" and m > 16 and kk % 8 == 0 and cout % 8 == 0:
+        if one_mm and m > 16 and kk % 8 == 0 and cout % 8 == 0:
+            a2, w2 = xq.view(m, kk), wq.view(cout, kk)
+
             def int_mm():
-                return dequantize(torch._int_mm(xq, wq.t()), xs, ws, b, dtype)
+                return dequantize(torch._int_mm(a2, w2.t()), xs, ws, b, dtype).view(got.shape)
 
             lib_same = torch.equal(int_mm(), got)
             row.update(library_ms=cuda_ms(int_mm, iters=10), library_bit_identical=lib_same)
             lib = f"library_ms(torch._int_mm + dequantize) {row['library_ms']:.4f} " \
                   f"(bit-identical {lib_same})"
-        elif kind == "dense":
+        elif one_mm:
             row.update(library_ms=None)
             lib = "library_ms null (torch._int_mm refuses K or N not a multiple of 8)"
         else:
@@ -827,29 +848,131 @@ def check_gemm_s8(g):
             lib = f"library_ms null (no int8 conv in PyTorch); float path ({dtype} cuDNN " \
                   f"conv, another function) {row['float_path_ms']:.4f}"
         log(f"kernel E gemm_s8 {label} {kind} x{tuple(shape)} -> {cout} (k {k}, s {stride}, "
-            f"p {pad}, {dtype}): bit-identical to the plain version {same} (max_abs_err "
-            f"{diff:.3e}){extreme}; kernel_ms {k_ms:.4f} plain_ms(f64) {p_ms:.4f} {lib} "
-            f"bound_ms {bms:.4f} ({by}, {bms / k_ms:.0%} of it; {row['gmac']:.2f} GMAC)")
+            f"p {pad}, {dtype}; plan {row['plan']}): bit-identical to the plain version on "
+            f"random and all +-127 operands {same} (max_abs_err {diff:.3e}); kernel_ms "
+            f"{k_ms:.4f} plain_ms(f64) {p_ms:.4f} {lib} bound_ms {bms:.4f} ({by}, "
+            f"{bms / k_ms:.0%} of it; {row['gmac']:.2f} GMAC)")
         shapes[label] = row
-        del x, w, xq, wq, got
+        del x, w, xq, wq, wp, got
         if not same:
             raise AssertionError(f"gemm_s8 kernel differs from its plain version ({label})")
     torch.cuda.empty_cache()
-    # quant_act on the card against the CPU (the JAX package's rounding points)
-    for dtype in (BF, F32):
-        for per_row, shape in ((False, (1, 160, 256, 64)), (True, (1216, 4096))):
-            x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
-            gq, gs = quant_act(x, per_row)
-            cq, cs = quant_act(x.cpu(), per_row)
-            if not (torch.equal(gq.cpu(), cq) and torch.equal(gs.cpu(), cs)):
-                raise AssertionError(f"quant_act {dtype} per_row={per_row}: the card and "
-                                     f"the CPU differ")
-    log("quant_act on the card vs the CPU: int8 values and scales bit-identical (bf16 and "
-        "f32, per tensor and per row)")
     main = shapes["vgg conv1_2"]
     return dict(max_abs_err=max(r["max_abs_err"] for r in shapes.values()), ms=main["ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=main["library_ms"], shapes=shapes)
+
+
+def int8_layer_inputs() -> dict:
+    """{(input shape, per_row): int8 layer name} over one request of 4
+    canvases on phase 4a's VGG-16 and the ResNet-101 COCO configuration with
+    either head, under ``TEST.INT8``: each ConvInt8's NHWC input (per tensor)
+    and each DenseInt8's (M, K) input (per row), from forward pre-hooks."""
+    from mnc_tpu_torch import config as C
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.ops.quant import QUANT_LAYERS, ConvInt8
+
+    archs = [("vgg16", MNCArch(pre_nms_top_n=6000, post_nms_top_n=304, nms_chunk=256,
+                               compute_dtype=torch.bfloat16, int8_inference=True))]
+    for roi_conv5, name in ((True, "resnet101 conv5 head"), (False, "resnet101 fc head")):
+        with coco_cfg(roi_conv5):
+            C.cfg_from_list(["TEST.INT8", "True"])
+            archs.append((name, MNCArch.from_cfg()))
+    found: dict = {}
+
+    def hook(mod, args, name):
+        conv = isinstance(mod, ConvInt8)
+        x = args[0].permute(0, 2, 3, 1) if conv else args[0]
+        found.setdefault((tuple(x.shape), not conv), name)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for arch_name, arch in archs:
+        model = MNC(arch, device="cuda", seed=0)
+        hooks = [m.register_forward_pre_hook(
+                 lambda mod, args, name=f"{arch_name} {n}": hook(mod, args, name))
+                 for n, m in model.named_modules() if isinstance(m, QUANT_LAYERS)]
+        canv = torch.randint(0, 256, (4, *arch.canvas, 3), generator=g, device="cuda",
+                             dtype=torch.uint8)
+        infos = torch.tensor([[float(arch.canvas[0]), float(arch.canvas[1]), 1.0]] * 4,
+                             device="cuda")
+        with torch.inference_mode():
+            model.apply_batch(canv, infos)
+        for h in hooks:
+            h.remove()
+        del model
+        torch.cuda.empty_cache()
+    return found
+
+
+def _quant_edges(x, per_row):
+    """x with quant_act's edge cases written into it (in place, per row or
+    over the flattened tensor): a negative extreme -5 that sets the scale s,
+    quotients one ulp either side of h + 0.5 after rounding to the dtype for
+    h = 1..47, values at exactly +-127 s, and (per row) an all-zero row."""
+    x.clamp_(-4.9, 4.9)
+    rows = x.view(-1, x.shape[-1]) if per_row else x.view(1, -1)
+    dt = x.dtype
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    s = (torch.full((), 5.0, dtype=dt, device=x.device)
+         / torch.full((), 127.0, dtype=dt, device=x.device)).float()
+    h = torch.arange(1, 48, device=x.device, dtype=torch.float32)
+    mid = ((h + 0.5) * s).to(dt).view(bits)  # one ulp of the dtype either side of it
+    vals = torch.cat([torch.tensor([-5.0], device=x.device, dtype=dt), (mid - 1).view(dt),
+                      (mid + 1).view(dt), torch.stack([127 * s, -127 * s]).to(dt)])
+    n = min(rows.shape[1], vals.numel())
+    for r in range(min(rows.shape[0], 3)):
+        rows[r, :n] = vals[:n]
+    if per_row and rows.shape[0] > 3:
+        rows[3] = 0
+    return x
+
+
+def check_quant_act(g):
+    """Kernel F against quant_act (the plain version, on the same card
+    tensors) at the input of every int8 layer of both trunks and both
+    ResNet heads (``int8_layer_inputs``), in bf16 and f32, on random
+    activations, on edge cases (``_quant_edges``) and on zeros: int8 values and
+    scales bit for bit.  Timed in bf16 beside the plain version; the bound
+    is the input read and the int8 output written once (per tensor F reads
+    the input twice); no PyTorch call computes the same function."""
+    from mnc_tpu_torch import kernels
+    from mnc_tpu_torch.ops.quant import quant_act
+
+    shapes = {}
+    for (shape, per_row), layer in sorted(int8_layer_inputs().items(),
+                                          key=lambda kv: -int(np.prod(kv[0][0]))):
+        label = f"{layer} {shape} per {'row' if per_row else 'tensor'}"
+        ok = True
+        for dtype in (BF, F32):
+            x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+            for data in ("random", "edges", "zeros"):
+                if data == "edges":
+                    x = _quant_edges(x, per_row)
+                elif data == "zeros":
+                    x.zero_()
+                gq, gs = kernels.quant_act_cuda(x, per_row)
+                wq, ws = quant_act(x, per_row)
+                ok = ok and torch.equal(gq, wq) and torch.equal(gs, ws)
+            if dtype is BF:
+                xr = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+                _, p_ms = _plain_ms(lambda: quant_act(xr, per_row))
+                k_ms = cuda_ms(lambda: kernels.quant_act_cuda(xr, per_row), iters=10)
+                q, sc = kernels.quant_act_cuda(xr, per_row)
+                bms, by = bound_ms(nbytes(xr, q, sc), 0.0)
+                del xr, q, sc
+            del x, gq, gs, wq, ws
+        log(f"kernel F quant_act {label}: bit-identical to quant_act (bf16 and f32, random, "
+            f"edge cases, zeros) {ok}; kernel_ms(bf16) {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
+            f"{bms:.4f} ({by}, {bms / k_ms:.0%} of it)")
+        shapes[label] = dict(shape=list(shape), per_row=per_row, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=bms, bound_by=by, bit_identical=ok)
+        if not ok:
+            raise AssertionError(f"quant_act kernel differs from its plain version ({label})")
+    torch.cuda.empty_cache()
+    main = next(r for label, r in shapes.items() if r["shape"] == [4, *CANVAS, 64])
+    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+                shapes=shapes)
 
 
 def _check_serving(out, arch, b, k):
@@ -2161,6 +2284,9 @@ def test_net_segdb_agrees(tmp):
 # ---------------------------------------------------------------------------
 
 N_INT8_REQUESTS = 10  # request pairs timed, int8 and bf16 interleaved
+# the int8 / bf16 request-time ratio predicted in PERF.md before the run that tests it;
+# printed beside the measured ratio, not gated
+INT8_RATIO_PREDICTED = (0.96, 1.01)
 
 
 def _tracks(name, got, want):
@@ -2261,13 +2387,16 @@ def int8_serve_path(device_label, arch):
                     counts[name] = counts.get(name, 0) + c
             _check_serving(out, arch, b, post.max_per_image)
             del out
-    log(f"serve VGG-16 int8: launches over {N_INT8_REQUESTS} requests {counts}")
+    log(f"serve VGG-16 int8: launches over {N_INT8_REQUESTS} requests {counts}; per request "
+        f"E {counts['gemm_s8_cuda'] / N_INT8_REQUESTS:g}, F "
+        f"{counts['quant_act_cuda'] / N_INT8_REQUESTS:g}")
     for k, ms in lat.items():
         log(f"serve VGG-16 {k} on {device_label}: per request of {b} canvases median "
             f"{float(np.median(ms)):.2f} ms, worst {max(ms):.2f} ms over {len(ms)} "
             f"(interleaved with the other dtype): " + ", ".join(f"{x:.1f}" for x in ms))
     log(f"serve VGG-16: int8 median / bf16 median = "
-        f"{float(np.median(lat['int8'])) / float(np.median(lat['bf16'])):.3f}")
+        f"{float(np.median(lat['int8'])) / float(np.median(lat['bf16'])):.3f} (predicted "
+        f"{INT8_RATIO_PREDICTED[0]}-{INT8_RATIO_PREDICTED[1]})")
     with torch.inference_mode():
         nets = {k: m.apply_batch(reqs[0], infos) for k, m in models.items()}
     _tracks("VGG-16", nets["int8"], nets["bf16"])
@@ -2340,7 +2469,8 @@ def int8_resnet_paths(device_label):
 
 
 CHECKS = {"roi_warp": check_roi_warp, "roi_warp_bwd": check_roi_warp_bwd, "nms": check_nms,
-          "paste_binarize": check_paste, "block1": check_block1, "gemm_s8": check_gemm_s8}
+          "paste_binarize": check_paste, "block1": check_block1, "gemm_s8": check_gemm_s8,
+          "quant_act": check_quant_act}
 
 
 def main(argv=None) -> int:
@@ -2477,6 +2607,9 @@ def report_kernels(results, by_path, t_start) -> None:
         # no Pallas site: XLA's s8 convolution (dense: quant.py:108)
         "gemm_s8": ("gemm_s8_cuda", "mnc_tpu_torch/csrc/gemm_s8.cu",
                     "mnc_tpu/ops/quant.py:84"),
+        # no Pallas site: what XLA fuses for _quant_act
+        "quant_act": ("quant_act_cuda", "mnc_tpu_torch/csrc/quant_act.cu",
+                      "mnc_tpu/ops/quant.py:43"),
     }
     # the paths that must launch each kernel
     serving = ("serve", "serve_resnet101_conv5", "serve_resnet101_fc")
@@ -2488,7 +2621,8 @@ def report_kernels(results, by_path, t_start) -> None:
             "nms": serving + training + int8 + ("cfm_serve",),
             "paste_binarize": serving + int8 + ("cfm_serve",),
             "block1": ("train_fused_block1",),
-            "gemm_s8": int8}
+            "gemm_s8": int8,
+            "quant_act": int8}
     report = []
     for name, (wrapper, source, replaces) in meta.items():
         per_path = {path: c[wrapper] for path, c in by_path.items()}

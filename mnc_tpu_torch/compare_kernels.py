@@ -1,11 +1,12 @@
 """Time the redesigned kernels — B (NMS), A′ (RoI-warp backward), C (paste +
-binarize), D (fused VGG block 1) — and E (the int8 GEMM) against earlier or
-differently tuned builds of themselves, on one GPU, inside one process.
+binarize), D (fused VGG block 1), E (the int8 GEMM) — against earlier or
+differently tuned builds of themselves, and F (the int8 activation
+quantization) against plain ``quant_act``, on one GPU, inside one process.
 
     python3 -m mnc_tpu_torch.compare_kernels [--parent-csrc DIR] [--only paste,block1]
         [--nms-variant=-DMNC_NMS_CLUSTER=8] [--bwd-variant=-DMNC_RWB_THREADS=1024]
         [--paste-variant=-DMNC_PASTE_BAND=64] [--block1-variant=-DMNC_B1_PRODUCERS=1]
-        [--gemm-s8-variant=-DMNC_S8_STAGES=2] [--bwd-source LABEL=PATH]
+        [--gemm-s8-variant=-DMNC_S8_STAGES_128=3] [--bwd-source LABEL=PATH]
         [--paste-source LABEL=PATH] [--block1-source LABEL=PATH]
         [--gemm-s8-source LABEL=PATH] [--profile] [--out FILE.json]
 
@@ -14,16 +15,18 @@ timer).  Two runs on two cards, or at two times, cannot be compared, so every
 build is timed in one call, in the order given and then in reverse (parent,
 change, ..., change, parent), each after its outputs were held against the
 plain PyTorch version (C: binarization equal except within 1e-5 of the
-threshold; D: ``block1_tolerance`` with >= 0.999 bit-identical; E: bit for
-bit, at five of ``chip_smoke.py``'s int8 serving shapes).
+threshold; D: ``block1_tolerance`` with >= 0.999 bit-identical; E and F:
+bit for bit; E at every shape of ``chip_smoke.GEMM_S8_SHAPES``, F at the
+inputs of ``QUANT_ACT_TIMED``).
 
 ``--parent-csrc DIR`` names a directory holding the parent commit's sources
 (``git show <commit>:mnc_tpu_torch/csrc/paste.cu > DIR/paste.cu``); each of
-``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu`` and ``block1.cu`` found there is
-built and timed.  ``nms.cu``, ``roi_warp_bwd.cu`` and ``gemm_s8.cu`` must
-have today's C interfaces; ``paste.cu`` and ``block1.cu`` the first port's (no extent
-scratch; HWIO weights), and are driven exactly as their wrappers drove them
-(D's weights permuted and cast on every call).  Each ``--*-variant``
+``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu``, ``block1.cu`` and ``gemm_s8.cu`` found there is
+built and timed.  ``nms.cu`` and ``roi_warp_bwd.cu`` must have today's C
+interfaces; ``paste.cu`` and ``block1.cu`` the first port's (no extent
+scratch; HWIO weights), ``gemm_s8.cu`` its first version's (``2cac255``:
+unpacked weights, no plan), and are driven exactly as their wrappers drove
+them (D's weights permuted and cast on every call).  Each ``--*-variant``
 (repeatable) builds the current source with extra ``nvcc`` flags (the macros
 at the head of each source), which is how cluster sizes, block sizes, bands
 and grids are settled; ``--*-source`` times another source file that has
@@ -54,12 +57,15 @@ PARENT_ABI = {  # the C interfaces of the parent commit's sources
     "paste_binarize": ("paste.cu", "mnc_paste_binarize",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "block1": _build.KERNEL_ABI["block1"],
-    "gemm_s8": _build.KERNEL_ABI["gemm_s8"],
+    # E's first version (mma.sync, 2cac255): unpacked weights, a 16-byte-loader flag
+    "gemm_s8": ("gemm_s8.cu", "mnc_gemm_s8", [_P, _P, _P, _I, _P, _P, _P] + [_I] * 14 + [_P]),
 }
-KINDS = ("nms", "roi_warp_bwd", "paste", "block1", "gemm_s8")
-# chip_smoke.GEMM_S8_SHAPES timed here
-GEMM_S8_TIMED = ("vgg conv1_1 (K=27)", "vgg conv1_2", "vgg conv4_2", "fc6 (M=1216)",
-                 "fc_mask (M=1216)", "conv5 head 3x3 (7x7)")
+KINDS = ("nms", "roi_warp_bwd", "paste", "block1", "gemm_s8", "quant_act")
+# kernel F against plain quant_act: label -> (input shape, per_row)
+QUANT_ACT_TIMED = {"conv1_2's input": ((4, 640, 1024, 64), False),
+                   "conv4_2's input": ((4, 80, 128, 512), False),
+                   "fc_mask's input": ((1216, 100352), True),
+                   "fc7's input": ((1216, 4096), True)}
 
 
 def load(source: Path, abi, flags=()):
@@ -216,10 +222,14 @@ def block1_callers(args):
 
 
 def gemm_s8_callers(args):
-    """{label: f(xq, wq, xs, ws, bias, stride, pad, out_dtype) -> out}, as
-    ``kernels.gemm_s8_cuda`` drives the C function."""
-    def make(fn):
-        def call(xq, wq, xs, ws, bias, stride, pad, out_dtype):
+    """{label: f(xq, wq, xs, ws, bias, stride, pad, out_dtype, wp) -> out}: the
+    first version as its wrapper drove it (unpacked weights; ``wp`` unused),
+    today's source through ``kernels._gemm_s8`` (the planner, the packed
+    weights ``wp``)."""
+    from mnc_tpu_torch.kernels import _gemm_s8
+
+    def make_parent(fn):
+        def call(xq, wq, xs, ws, bias, stride, pad, out_dtype, wp):
             conv = xq.dim() == 4
             n = wq.shape[0]
             if conv:
@@ -239,14 +249,19 @@ def gemm_s8_callers(args):
             return out
         return call
 
-    abi = _build.KERNEL_ABI["gemm_s8"]
+    def make(fn):
+        def call(xq, wq, xs, ws, bias, stride, pad, out_dtype, wp):
+            return _gemm_s8(fn, xq, wq, xs, ws, bias, stride, pad, out_dtype, wp)
+        return call
+
     callers = {}
     parent = _parent(args, "gemm_s8")
     if parent:
-        callers["parent"] = make(load(parent, PARENT_ABI["gemm_s8"]))
+        callers["parent (mma.sync tiles)"] = make_parent(load(parent, PARENT_ABI["gemm_s8"]))
     for suffix, src, flags in _sources(args, "gemm_s8", args.gemm_s8_variant,
                                        args.gemm_s8_source):
-        callers[f"mma.sync tiles {suffix}".strip()] = make(load(src, abi, flags))
+        callers[f"wgmma, planned {suffix}".strip()] = make(
+            load(src, _build.KERNEL_ABI["gemm_s8"], flags))
     return callers
 
 
@@ -414,12 +429,13 @@ def main(argv=None) -> int:
     if "gemm_s8" in only:
         report["gemm_s8"] = {}
         callers = gemm_s8_callers(args)
+        from mnc_tpu_torch.kernels import pack_gemm_s8_weight
         from mnc_tpu_torch.ops.quant import gemm_s8_plain
-        for shape in GEMM_S8_TIMED:
-            kind, xshape, cout, k, stride, pad, bias, dtype = cs.GEMM_S8_SHAPES[shape]
+        for shape, (kind, xshape, cout, k, stride, pad, bias, dtype) in \
+                cs.GEMM_S8_SHAPES.items():
             _, _, xq, xs, wq, ws, b = cs._gemm_s8_inputs(g, kind, xshape, cout, k, bias, dtype)
-            call_args = (xq, wq, xs, ws, b, stride, pad, dtype)
-            want = gemm_s8_plain(*call_args)
+            call_args = (xq, wq, xs, ws, b, stride, pad, dtype, pack_gemm_s8_weight(wq))
+            want = gemm_s8_plain(*call_args[:-1])
             for label, fn in callers.items():
                 if not torch.equal(fn(*call_args), want):
                     wrong.append(f"gemm_s8 [{label}] ({shape}): differs from the plain version")
@@ -431,6 +447,27 @@ def main(argv=None) -> int:
                 cs.log(f"gemm_s8 {shape} [{label}]: ms {ms[label]}")
             report["gemm_s8"][shape] = ms
             profiled("gemm_s8", shape, callers, lambda fn: fn(*call_args))
+            del call_args, xq, wq
+
+    if "quant_act" in only:
+        report["quant_act"] = {}
+        from mnc_tpu_torch.kernels import quant_act_cuda
+        from mnc_tpu_torch.ops.quant import quant_act
+        callers = {"plain quant_act": quant_act, "kernel F": quant_act_cuda}
+        for shape, (xshape, per_row) in QUANT_ACT_TIMED.items():
+            x = (torch.randn(xshape, generator=g, device="cuda") * 3).to(torch.bfloat16)
+            (gq, gs), (wq, ws) = quant_act_cuda(x, per_row), quant_act(x, per_row)
+            if not (torch.equal(gq, wq) and torch.equal(gs, ws)):
+                wrong.append(f"quant_act ({shape}): kernel F differs from quant_act")
+                cs.log(wrong[-1])
+            del gq, gs, wq, ws
+            ms = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(x, per_row),
+                                                               iters=10))
+            for label in callers:
+                cs.log(f"quant_act {shape} {xshape} bf16 [{label}]: ms {ms[label]}")
+            report["quant_act"][shape] = ms
+            profiled("quant_act", shape, callers, lambda fn: fn(x, per_row))
+            del x
 
     if args.out:
         out = Path(args.out)

@@ -7,7 +7,8 @@ returns a CUDA error, and then adds one to its ``launches`` counter — a
 plain integer attribute, so a run can show which kernels the main path
 went through.  The ops modules register each kernel as a ``torch.library``
 custom op (``mnc::roi_warp``, ``mnc::nms_keep``, ``mnc::paste_binarize``,
-``mnc::block1``, ``mnc::gemm_s8``) whose CUDA implementation calls the wrapper here and whose
+``mnc::block1``, ``mnc::gemm_s8``, ``mnc::quant_act``) whose CUDA implementation calls the
+wrapper here and whose
 CPU implementation is the plain PyTorch version; the gradients (A′, and D's
 backward through its plain version) are called from ``autograd.Function``s.
 Nothing here falls back.
@@ -19,9 +20,18 @@ Nothing here falls back.
     block1_cuda          — kernel D, csrc/block1.cu   (replaces fused_block1)
     gemm_s8_cuda         — kernel E, csrc/gemm_s8.cu  (the int8 conv / dense of
                            ops/quant.py; no Pallas counterpart)
+    quant_act_cuda       — kernel F, csrc/quant_act.cu (the int8 activation
+                           quantization; no Pallas counterpart)
+
+Kernel E's planner (``plan_gemm_s8``) and weight packing
+(``pack_gemm_s8_weight``) are plain Python and torch, tested on the CPU.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
 
 import torch
 
@@ -41,8 +51,15 @@ def _check(t: torch.Tensor, name: str, dtypes, ndim: int, device=None):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+def _on(device: torch.device):
+    """Makes ``device`` current for a launch (a no-op where it already is)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
+    with _on(device):
         err = kernel_function(name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: CUDA error {err}")
@@ -177,16 +194,175 @@ def block1_cuda(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor, w2p: torch
     return out
 
 
-def gemm_s8_cuda(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
-                 bias: torch.Tensor | None, stride: int = 1, padding: int = 0,
-                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """s8 × s8 → s32 on the tensor cores, dequantized to ``out_dtype`` (f32
-    or bf16) as ``acc * (xs * ws) + bias``.  A convolution: xq (B, H, W, C)
-    int8, wq (Cout, KH, KW, C) int8 (KH = KW), ``stride`` and symmetric
-    ``padding``, xs one f32 scale → (B, OH, OW, Cout).  A dense layer: xq
-    (M, K) int8, wq (N, K) int8, xs (M, 1) f32 → (M, N).  ws (N,) f32, bias
-    (N,) f32 or None.  16-byte loads where C (and K) are multiples of 16,
-    else byte loads."""
+# Kernel E's geometry (csrc/gemm_s8.cu): 128-row output tiles, 128-byte
+# k-blocks, A loaded by one of four modes, split-K where tiles are few.
+GEMM_S8_BM = 128
+GEMM_S8_BK = 128
+GEMM_S8_MODES = ("tma", "im2col", "staged", "gather")
+GEMM_S8_MAX_SPLITS = 16
+GEMM_S8_SPLIT_COST = 8  # a slice's plane store and reduction, in k-blocks of work
+GEMM_S8_WIDE_COST = 1.6  # a 256-wide tile's k-block against a 128-wide one's (2x the
+#                          products for 1.5x the operand bytes)
+GEMM_S8_HALO_BUF = 6144  # bytes of one STAGED halo buffer (raw or padded)
+GEMM_S8_MAX_STAGED_K = 1024
+
+
+def gemm_s8_n_pad(n: int) -> int:
+    """The multiple that kernel E's packed weights pad ``n`` rows to: its
+    narrowest N tile for n, 64 where Cout <= 64, else 128 (a 256-wide tile
+    is taken only where 256 divides n)."""
+    return 64 if n <= 64 else 128
+
+
+def gemm_s8_halo_bytes(stride: int, kw: int) -> tuple[int, int]:
+    """(raw, padded) bytes per input row of a STAGED halo (C = 3): a tile's
+    128 output pixels need (127 * stride + KW) pixels; the raw row keeps up
+    to 15 bytes of alignment in front and is rounded up to 16."""
+    padded = ((GEMM_S8_BM - 1) * stride + kw) * 3
+    return (15 + padded + 15) // 16 * 16, padded
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """How kernel E covers one GEMM: ``mode`` loads A, ``bn``-wide N tiles
+    of 128 rows (``m_tiles`` x ``n_tiles``), ``k_blocks`` 128-byte
+    k-blocks cut into ``splits`` slices of ``kb_per_split``, ``grid``
+    persistent blocks; ``m_fast`` walks the M tiles of an N tile in turn."""
+    mode: str
+    bn: int
+    m: int
+    n: int
+    k: int
+    m_tiles: int
+    n_tiles: int
+    k_blocks: int
+    splits: int
+    kb_per_split: int
+    m_fast: bool
+    grid: int
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    def units(self):
+        """(m0, n0, kb0, kb1) of every work unit, in the kernel's order
+        (``unit_of`` in csrc/gemm_s8.cu): slices outermost."""
+        for u in range(self.tiles * self.splits):
+            split, tile = divmod(u, self.tiles)
+            if self.m_fast:
+                nt, mt = divmod(tile, self.m_tiles)
+            else:
+                mt, nt = divmod(tile, self.n_tiles)
+            kb0 = split * self.kb_per_split
+            yield (mt * GEMM_S8_BM, nt * self.bn, kb0,
+                   min(kb0 + self.kb_per_split, self.k_blocks))
+
+    def k_steps(self, kb: int) -> int:
+        """The k32 steps of k-block ``kb`` that hold some k < K: the bytes of
+        A that the STAGED and GATHER loaders write (the wgmmas read the whole
+        block; past K the packed weights are zero)."""
+        return min(4, (self.k - kb * GEMM_S8_BK + 31) // 32)
+
+
+def _gemm_s8_waves(tiles: int, kb: int, splits: int, n_sms: int):
+    per = -(-kb // splits)
+    used = -(-kb // per)  # slices that hold a k-block
+    cost = -(-tiles * used // n_sms) * (per + (GEMM_S8_SPLIT_COST if used > 1 else 0))
+    return cost, used, per
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_gemm_s8(m: int, n: int, k: int, *, c: int, kh: int, kw: int, stride: int, pad: int,
+                 ow: int, conv: bool, aligned: bool, out_bf16: bool = True,
+                 n_sms: int = 132) -> GemmPlan:
+    """Kernel E's plan for an (m, k) x (k, n) product: a convolution's
+    implicit im2col (``conv``; c input channels, kernel kh x kw, ``stride``,
+    ``pad``, output width ``ow``) or a dense (m, k) matrix.  ``aligned``:
+    the activations start on a 16-byte boundary.
+
+    A's loader: TMA where A is a plain (M, K) matrix (dense, or a 1x1
+    stride-1 convolution) with K % 16 == 0; 16-byte im2col where C % 16 ==
+    0; the staged halo where C == 3, Cout <= 64, K <= 1024 and every tile lies
+    in one output row; byte gathers otherwise.  The N tile is 64 where
+    Cout <= 64; else 128, or 256 for a bf16 output whose N is a multiple of
+    256 where A is loaded by im2col.  The tile width and the slice count of
+    split-K (at most 16) are
+    those with the fewest k-blocks per SM over their waves, each slice
+    charged ``GEMM_S8_SPLIT_COST`` k-blocks for its reduction and a 256-wide
+    k-block ``GEMM_S8_WIDE_COST`` 128-wide ones."""
+    plain = not conv or (kh == kw == 1 and stride == 1 and pad == 0)
+    if plain and k % 16 == 0 and aligned:
+        mode = "tma"
+    elif conv and not plain and c % 16 == 0 and aligned:
+        mode = "im2col"
+    elif (conv and c == 3 and n <= 64 and k <= GEMM_S8_MAX_STAGED_K and ow % GEMM_S8_BM == 0
+          and aligned and kh * max(gemm_s8_halo_bytes(stride, kw)) <= GEMM_S8_HALO_BUF):
+        mode = "staged"
+    else:
+        mode = "gather"
+    kb = -(-k // GEMM_S8_BK)
+    m_tiles = -(-m // GEMM_S8_BM)
+    widths = [gemm_s8_n_pad(n)]
+    if mode == "im2col" and out_bf16 and n % 256 == 0:  # TMA-fed products ran slower at 256
+        widths.append(256)
+    best = None
+    for bn in widths:
+        tiles = m_tiles * -(-n // bn)
+        for s in range(1, min(kb, GEMM_S8_MAX_SPLITS) + 1):
+            cost, used, per = _gemm_s8_waves(tiles, kb, s, n_sms)
+            cost *= GEMM_S8_WIDE_COST if bn == 256 else 1.0
+            if best is None or cost < best[0]:
+                best = (cost, bn, used, per)
+    _, bn, splits, per = best
+    n_tiles = -(-n // bn)
+    return GemmPlan(mode=mode, bn=bn, m=m, n=n, k=k, m_tiles=m_tiles, n_tiles=n_tiles,
+                    k_blocks=kb, splits=splits, kb_per_split=per, m_fast=not conv,
+                    grid=min(m_tiles * n_tiles * splits, n_sms))
+
+
+def pack_gemm_s8_weight(wq: torch.Tensor) -> torch.Tensor:
+    """int8 weights (N, KH, KW, C) or (N, K) -> kernel E's B operand
+    (ceil(K / 128), N rounded up by :func:`gemm_s8_n_pad`, 128): 128-byte k-blocks of
+    each row, zero-padded in K and N, with the 16-byte chunk c of row n
+    stored at c ^ (n % 8) -- the 128-byte swizzle that a wgmma descriptor
+    reads, so one stage of B is one contiguous copy."""
+    n = wq.shape[0]
+    w2 = wq.reshape(n, -1)
+    k = w2.shape[1]
+    kb = -(-k // GEMM_S8_BK)
+    n_pad = -(-n // gemm_s8_n_pad(n)) * gemm_s8_n_pad(n)
+    buf = torch.zeros((n_pad, kb * GEMM_S8_BK), dtype=torch.int8, device=wq.device)
+    buf[:n, :k] = w2
+    return _swizzle(buf.view(n_pad, kb, 8, 16).permute(1, 0, 2, 3)).reshape(kb, n_pad, 128)
+
+
+def unpack_gemm_s8_weight(wp: torch.Tensor, shape) -> torch.Tensor:
+    """The inverse of :func:`pack_gemm_s8_weight`: wp back to ``shape``."""
+    kb, n_pad, _ = wp.shape
+    rows = _swizzle(wp.view(kb, n_pad, 8, 16)).permute(1, 0, 2, 3).reshape(n_pad, -1)
+    n, k = shape[0], int(torch.Size(shape[1:]).numel())
+    return rows[:n, :k].reshape(shape).contiguous()
+
+
+def _swizzle(t: torch.Tensor) -> torch.Tensor:
+    """(kb, n, 8, 16) -> chunk p of row n from chunk p ^ (n % 8) (an involution)."""
+    n = t.shape[1]
+    idx = torch.arange(8, device=t.device)[None, :] ^ (torch.arange(n, device=t.device)[:, None]
+                                                        % 8)
+    return torch.gather(t, 2, idx[None, :, :, None].expand(t.shape).contiguous())
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _gemm_s8(fn, xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+             bias: torch.Tensor | None, stride: int, padding: int, out_dtype: torch.dtype,
+             wp: torch.Tensor | None) -> torch.Tensor:
+    """Checks, plans and launches kernel E through the C function ``fn`` (or
+    the kernel of that name, loaded once the operands have passed)."""
     conv = xq.dim() == 4
     _check(xq, "xq", (torch.int8,), 4 if conv else 2)
     dev = xq.device
@@ -214,7 +390,7 @@ def gemm_s8_cuda(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch
         if stride < 1 or padding < 0 or oh < 1 or ow < 1:
             raise ValueError(f"stride {stride} / padding {padding} for {(h, w)} x {(kh, kw)}")
         out = torch.empty((b, oh, ow, n), dtype=out_dtype, device=dev)
-        k = kh * kw * c
+        m, k = b * oh * ow, kh * kw * c
     else:
         m, c = xq.shape
         if wq.shape[1] != c:
@@ -224,18 +400,78 @@ def gemm_s8_cuda(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch
         b, h, w, kh, kw, oh, ow = m, 1, 1, 1, 1, 1, 1
         out = torch.empty((m, n), dtype=out_dtype, device=dev)
         k, stride, padding = c, 1, 0
-    vec = k % 16 == 0 and (not conv or c % 16 == 0) and not (
-        xq.data_ptr() % 16 or wq.data_ptr() % 16)
-    _launch("gemm_s8", dev, xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), int(not conv),
-            ws.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, h, w, c, n, kh, kw, stride, padding, oh, ow,
-            int(out_dtype == torch.bfloat16), int(not conv), int(vec), _stream(xq))
+    plan = plan_gemm_s8(m, n, k, c=c, kh=kh, kw=kw, stride=stride, pad=padding, ow=ow,
+                        conv=conv, aligned=xq.data_ptr() % 16 == 0,
+                        out_bf16=out_dtype == torch.bfloat16, n_sms=_n_sms(dev))
+    if wp is None:
+        wp = pack_gemm_s8_weight(wq)
+    _check(wp, "wp", (torch.int8,), 3, dev)
+    if tuple(wp.shape) != (plan.k_blocks, plan.n_tiles * plan.bn, 128) or wp.data_ptr() % 16:
+        raise ValueError(f"wp has shape {tuple(wp.shape)}: not the packing of wq "
+                         f"{tuple(wq.shape)} (pack_gemm_s8_weight), or is unaligned")
+    if isinstance(fn, str):
+        fn = kernel_function(fn)
+    scratch = None
+    if plan.splits > 1:  # a plane of int32 partial sums per slice
+        scratch = torch.empty(plan.splits * m * n, dtype=torch.int32, device=dev)
+    with _on(dev):
+        err = fn(xq.data_ptr(), wp.data_ptr(), xs.data_ptr(), int(not conv), ws.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), b, h, w, c, n, kh, kw,
+                 stride, padding, oh, ow, int(out_dtype == torch.bfloat16), int(plan.m_fast),
+                 GEMM_S8_MODES.index(plan.mode), plan.bn, plan.splits, plan.kb_per_split,
+                 plan.grid, _stream(xq))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel 'gemm_s8' failed to launch: CUDA error {err}")
+    return out
+
+
+def gemm_s8_cuda(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                 bias: torch.Tensor | None, stride: int = 1, padding: int = 0,
+                 out_dtype: torch.dtype = torch.bfloat16,
+                 wp: torch.Tensor | None = None) -> torch.Tensor:
+    """s8 × s8 → s32 on the tensor cores (wgmma), dequantized to
+    ``out_dtype`` (f32 or bf16) as ``acc * (xs * ws) + bias``.  A
+    convolution: xq (B, H, W, C) int8, wq (Cout, KH, KW, C) int8 (KH = KW),
+    ``stride`` and symmetric ``padding``, xs one f32 scale → (B, OH, OW,
+    Cout).  A dense layer: xq (M, K) int8, wq (N, K) int8, xs (M, 1) f32 →
+    (M, N).  ws (N,) f32, bias (N,) f32 or None.  ``wp`` is wq packed by
+    :func:`pack_gemm_s8_weight` (packed here when None; the int8 layers keep
+    it cached per weight version).  :func:`plan_gemm_s8` picks the tiles, A's
+    loader and split-K; a split-K plan takes an int32 scratch, a plane per
+    slice, and a second launch adds the planes and dequantizes."""
+    out = _gemm_s8("gemm_s8", xq, wq, xs, ws, bias, stride, padding, out_dtype, wp)
     gemm_s8_cuda.launches += 1
     return out
 
 
+QUANT_ACT_PARTIALS = 2048  # csrc/quant_act.cu kMaxPartials
+
+
+def quant_act_cuda(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Activations (bf16 or f32, contiguous) → (int8 of x's shape, f32
+    scale): one scale (shape ``()``) over the tensor, or one per row of the
+    last axis (shape ``(..., 1)``), bit for bit ``ops.quant.quant_act``.
+    Per tensor two launches (absmax partials, then the scale and the
+    quantization on the device), per row one."""
+    _check(x, "x", (torch.float32, torch.bfloat16), x.dim())
+    if x.dim() < 1 or x.numel() == 0:
+        raise ValueError(f"x has shape {tuple(x.shape)}: nothing to quantize")
+    dev = x.device
+    k = x.shape[-1] if per_row else x.numel()
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    scale = torch.empty((*x.shape[:-1], 1) if per_row else (), dtype=torch.float32, device=dev)
+    partial = None if per_row else torch.empty(QUANT_ACT_PARTIALS, dtype=torch.float32,
+                                               device=dev)
+    _launch("quant_act", dev, x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            None if partial is None else partial.data_ptr(), x.numel() // k, k, int(per_row),
+            int(x.dtype == torch.bfloat16), _n_sms(dev), _stream(x))
+    quant_act_cuda.launches += 1
+    return q, scale
+
+
 KERNELS = (roi_warp_cuda, roi_warp_bwd_cuda, nms_keep_cuda, paste_binarize_cuda, block1_cuda,
-           gemm_s8_cuda)
+           gemm_s8_cuda, quant_act_cuda)
 for _k in KERNELS:
     _k.launches = 0
 

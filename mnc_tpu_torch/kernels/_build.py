@@ -24,7 +24,7 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # kernel name -> (source, C function, argtypes)
 KERNEL_ABI = {
     "roi_warp": ("roi_warp.cu", "mnc_roi_warp_fwd",
@@ -36,7 +36,9 @@ KERNEL_ABI = {
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "block1": ("block1.cu", "mnc_block1", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "gemm_s8": ("gemm_s8.cu", "mnc_gemm_s8",
-                [_P, _P, _P, _I, _P, _P, _P] + [_I] * 14 + [_P]),
+                [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 18 + [_P]),
+    "quant_act": ("quant_act.cu", "mnc_quant_act",
+                  [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
 }
 
 

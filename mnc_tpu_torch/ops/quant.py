@@ -29,7 +29,8 @@ sees one opaque node: its CUDA implementation is kernel E
 implementation the plain version :func:`gemm_s8_plain`, whose float64
 convolution or matmul of the int8 values is exact (every partial sum is an
 integer below 2^53; the largest, 127² · 4608 ≈ 7.4·10⁷, is below 2^31 too).
-The activation quantization is plain PyTorch on either device.
+The activation quantization is the custom op ``mnc::quant_act``: on the card
+kernel F (``csrc/quant_act.cu``, bit-identical), on the CPU :func:`quant_act`.
 """
 
 from __future__ import annotations
@@ -80,21 +81,29 @@ def quant_act(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.Tenso
 _QUANTIZED = WeakIdKeyDictionary()
 
 
-def quantized_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`quant_weight`, cached per weight: the cache holds the weight
-    weakly and is stamped with its storage, version (which every in-place
-    update bumps), dtype and shape, so a reloaded or moved weight is
-    quantized anew.  Inference tensors keep no version counter and are
-    quantized on every call."""
-    if w.is_inference():
-        return quant_weight(w)
+def quantized_weight(w: torch.Tensor, packed: bool = False):
+    """:func:`quant_weight`, cached per weight: (int8 weight, f32 scale), or
+    with ``packed`` (kernel E's packed int8 weight, f32 scale).  The cache
+    holds the weight weakly and is stamped with its storage, version (which
+    every in-place update bumps), dtype and shape, so a reloaded or moved
+    weight is quantized (and packed) anew.  Inference tensors keep no
+    version counter and are quantized on every call."""
+    from mnc_tpu_torch.kernels import pack_gemm_s8_weight
+
     stamp = (w.data_ptr(), w.device, w._version, w.dtype, tuple(w.shape))
-    hit = _QUANTIZED.get(w)
-    if hit is not None and hit[0] == stamp:
-        return hit[1]
-    out = quant_weight(w)
-    _QUANTIZED[w] = (stamp, out)
-    return out
+    hit = None if w.is_inference() else _QUANTIZED.get(w)
+    if hit is None or hit[0] != stamp:
+        hit = (stamp, {})
+        if not w.is_inference():
+            _QUANTIZED[w] = hit
+    forms = hit[1]
+    if "int8" not in forms:
+        forms["int8"] = quant_weight(w)
+    if not packed:
+        return forms["int8"]
+    if "packed" not in forms:
+        forms["packed"] = pack_gemm_s8_weight(forms["int8"][0])
+    return forms["packed"], forms["int8"][1]
 
 
 def dequantize(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
@@ -141,8 +150,9 @@ def _gemm_s8_op_cuda(xq, xs, weight, bias, stride, padding, out_dtype):
     from mnc_tpu_torch.kernels import gemm_s8_cuda
 
     wq, ws = quantized_weight(weight)
+    wp, _ = quantized_weight(weight, packed=True)
     return gemm_s8_cuda(xq, wq, xs, ws, None if bias is None else bias.float(), stride,
-                        padding, out_dtype)
+                        padding, out_dtype, wp)
 
 
 @gemm_s8_op.register_fake
@@ -155,21 +165,43 @@ def _gemm_s8_op_fake(xq, xs, weight, bias, stride, padding, out_dtype):
     return xq.new_empty((xq.shape[0], weight.shape[0]), dtype=out_dtype)
 
 
+@torch.library.custom_op("mnc::quant_act", mutates_args=(), device_types="cpu")
+def quant_act_op(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel F as a custom op: :func:`quant_act` with a contiguous int8
+    output.  Its CUDA implementation is kernel F (``csrc/quant_act.cu``),
+    its CPU implementation :func:`quant_act`."""
+    q, scale = quant_act(x, per_row)
+    return q.contiguous(), scale
+
+
+@quant_act_op.register_kernel("cuda")
+def _quant_act_op_cuda(x, per_row):
+    from mnc_tpu_torch.kernels import quant_act_cuda
+
+    return quant_act_cuda(x.contiguous(), per_row)
+
+
+@quant_act_op.register_fake
+def _quant_act_op_fake(x, per_row):
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty((*x.shape[:-1], 1) if per_row else (), dtype=torch.float32))
+
+
 def conv_int8(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
               stride: int = 1, padding: int = 0) -> torch.Tensor:
     """An int8 convolution of NHWC ``x`` (compute dtype) with an OIHW float
     weight (square kernel, symmetric padding) → NHWC in ``x.dtype``: one
     activation scale over all of ``x``."""
-    xq, xs = quant_act(x, per_row=False)
-    return gemm_s8_op(xq.contiguous(), xs, weight, bias, stride, padding, x.dtype)
+    xq, xs = quant_act_op(x, False)
+    return gemm_s8_op(xq, xs, weight, bias, stride, padding, x.dtype)
 
 
 def dense_int8(x: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor | None) -> torch.Tensor:
     """An int8 dense layer: (M, K) ``x`` (compute dtype), (N, K) float weight
     → (M, N) in ``x.dtype``, with one activation scale per row."""
-    xq, xs = quant_act(x, per_row=True)
-    return gemm_s8_op(xq.contiguous(), xs, weight, bias, 1, 0, x.dtype)
+    xq, xs = quant_act_op(x, True)
+    return gemm_s8_op(xq, xs, weight, bias, 1, 0, x.dtype)
 
 
 class ConvInt8(nn.Conv2d):

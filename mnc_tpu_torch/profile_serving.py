@@ -23,8 +23,8 @@ canvases:
 - the kernels that take the most device time, by name;
 - under ``TEST.INT8`` (``--set TEST.INT8 True``), each int8 layer of the
   request on its own: the device time of its activation quantization
-  (``quant_act``: absmax, divide, round, clamp, cast; plain PyTorch) and of
-  its kernel E launch, on the inputs the request gave it (CUDA events).
+  (kernel F) and of its kernel E launch (with the packed weights the layer
+  caches), on the inputs the request gave it (CUDA events).
 
 It needs a GPU and exits with an error without one.
 """
@@ -86,11 +86,12 @@ def _event_ms(fn, iters=5) -> float:
 
 
 def int8_layer_split(model, stages) -> None:
-    """Times the activation quantization and the kernel E launch of every
-    int8 layer on the inputs one request hands it (the first call of each
-    layer: the first head pass; the second pass has the same shapes)."""
-    from mnc_tpu_torch.kernels import gemm_s8_cuda
-    from mnc_tpu_torch.ops.quant import QUANT_LAYERS, ConvInt8, quant_act, quantized_weight
+    """Times the activation quantization (kernel F) and the kernel E launch
+    of every int8 layer on the inputs one request hands it (the first call
+    of each layer: the first head pass; the second pass has the same
+    shapes)."""
+    from mnc_tpu_torch.kernels import gemm_s8_cuda, quant_act_cuda
+    from mnc_tpu_torch.ops.quant import QUANT_LAYERS, ConvInt8, quantized_weight
 
     seen: dict = {}
 
@@ -111,21 +112,21 @@ def int8_layer_split(model, stages) -> None:
     rows, tq, te = [], 0.0, 0.0
     for name, (mod, x) in seen.items():
         conv = isinstance(mod, ConvInt8)
-        x = x.permute(0, 2, 3, 1) if conv else x
-        xq, xs = quant_act(x, per_row=not conv)
-        xq = xq.contiguous()
+        x = (x.permute(0, 2, 3, 1) if conv else x).contiguous()
+        xq, xs = quant_act_cuda(x, per_row=not conv)
         wq, ws = quantized_weight(mod.weight)
+        wp, _ = quantized_weight(mod.weight, packed=True)
         bias = None if mod.bias is None else mod.bias.float()
         args = (mod.stride[0], mod.padding[0]) if conv else (1, 0)
-        q_ms = _event_ms(lambda: quant_act(x, per_row=not conv))
-        e_ms = _event_ms(lambda: gemm_s8_cuda(xq, wq, xs, ws, bias, *args, x.dtype))
+        q_ms = _event_ms(lambda: quant_act_cuda(x, per_row=not conv))
+        e_ms = _event_ms(lambda: gemm_s8_cuda(xq, wq, xs, ws, bias, *args, x.dtype, wp))
         rows.append((name, tuple(x.shape), q_ms, e_ms))
         tq, te = tq + q_ms, te + e_ms
     print(f"int8 layers of one pass (trunk once, heads once; the request runs the heads "
-          f"twice), device ms each, CUDA events: quant_act {tq:.3f} ms, kernel E "
+          f"twice), device ms each, CUDA events: kernel F {tq:.3f} ms, kernel E "
           f"{te:.3f} ms in all")
     for name, shape, q_ms, e_ms in rows:
-        print(f"  {name:36s} {str(shape):24s} quant_act {q_ms:8.3f}  E {e_ms:8.3f}")
+        print(f"  {name:36s} {str(shape):24s} F {q_ms:8.3f}  E {e_ms:8.3f}")
 
 
 @torch.inference_mode()

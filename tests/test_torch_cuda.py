@@ -13,7 +13,9 @@ Tolerances: NMS keeps identical; RoI warp ≤1e-5·max|F| in f32 and
 (boxes) of each gradient's max in f32; paste bit for bit except pixels whose
 f32 product lies within 1e-5 of the threshold; block 1 within
 ``block1_tolerance`` with at least 0.999 of the elements bit-identical; the
-int8 GEMM (kernel E) bit for bit.
+int8 GEMM (kernel E, through each of its loaders, N tiles and split-K) and
+the int8 activation quantization (kernel F, int8 values and scales) bit for
+bit.
 """
 
 import pytest
@@ -525,3 +527,139 @@ def test_int8_layers_follow_in_place_weight_updates(gen):
             conv.cuda(), dense.cuda()
             conv.weight.mul_(-1.5)
             dense.weight.add_(0.25)
+
+
+def _plan(xq, wq, stride, pad):
+    """kernels.plan_gemm_s8 for the operands of a gemm_s8_cuda call."""
+    if xq.dim() == 2:
+        m, k = xq.shape
+        return kernels.plan_gemm_s8(m, wq.shape[0], k, c=k, kh=1, kw=1, stride=1, pad=0, ow=1,
+                                    conv=False, aligned=xq.data_ptr() % 16 == 0)
+    b, h, w, c = xq.shape
+    kk = wq.shape[1]
+    oh, ow = (h + 2 * pad - kk) // stride + 1, (w + 2 * pad - kk) // stride + 1
+    return kernels.plan_gemm_s8(b * oh * ow, wq.shape[0], kk * kk * c, c=c, kh=kk, kw=kk,
+                                stride=stride, pad=pad, ow=ow, conv=True,
+                                aligned=xq.data_ptr() % 16 == 0)
+
+
+# each of kernel E's loaders, N tiles (of the bf16 plan; f32 outputs take 128 for 256),
+# split-K, and the weights resident in shared memory (one N tile, unsplit, at most 6
+# k-blocks) or streamed: label -> (x shape, Cout, k, stride, pad, expected (mode, N
+# tile, split))
+GEMM_S8_PATHS = {
+    "tma dense, ragged K and N": ((129, 4096 + 16), 130, 1, 1, 0, ("tma", 128, True)),
+    "tma 1x1 stride 1": ((2, 16, 24, 64), 256, 1, 1, 0, ("tma", 128, False)),
+    "tma 1x1 -> 64, weights resident": ((2, 16, 24, 256), 64, 1, 1, 0, ("tma", 64, False)),
+    "tma dense split-K": ((37, 8192), 256, 1, 1, 0, ("tma", 128, True)),
+    "tma dense split-K, odd N": ((37, 8192), 255, 1, 1, 0, ("tma", 128, True)),
+    "im2col N tile 64": ((2, 80, 128, 64), 64, 3, 1, 1, ("im2col", 64, False)),
+    "im2col N tile 64, weights streamed": ((4, 40, 64, 128), 64, 3, 1, 1,
+                                           ("im2col", 64, False)),
+    "im2col N tile 64 split-K": ((1, 8, 8, 512), 64, 3, 1, 1, ("im2col", 64, True)),
+    "im2col split-K": ((1, 8, 8, 256), 256, 3, 1, 1, ("im2col", 128, True)),
+    "im2col N tile 256": ((4, 40, 64, 256), 256, 3, 1, 1, ("im2col", 256, False)),
+    "im2col N tile 256 split-K": ((4, 20, 32, 512), 512, 3, 1, 1, ("im2col", 256, True)),
+    "im2col 1x1 stride 2": ((2, 16, 16, 64), 160, 1, 2, 0, ("im2col", 128, False)),
+    "staged C=3 3x3": ((2, 3, 256, 3), 64, 3, 1, 1, ("staged", 64, False)),
+    "staged C=3 7x7/s2": ((1, 9, 512, 3), 64, 7, 2, 3, ("staged", 64, False)),
+    "gather C=3 wide Cout": ((1, 4, 128, 3), 96, 3, 1, 1, ("gather", 128, False)),
+    "gather odd C": ((2, 7, 9, 24), 21, 3, 1, 1, ("gather", 64, False)),
+    "gather dense K=5000": ((33, 5000), 70, 1, 1, 0, ("gather", 128, True)),
+}
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("label", list(GEMM_S8_PATHS))
+def test_gemm_s8_paths_match_plain(gen, label, extreme):
+    """Kernel E through each A loader (TMA, 16-byte im2col, the staged C = 3
+    halo, byte gathers), both N tiles and split-K, bit for bit, the plan as
+    expected; the weights packed once and handed over as the layers do."""
+    from mnc_tpu_torch.ops.quant import gemm_s8_plain
+
+    shape, cout, k, stride, pad, (mode, bn, split) = GEMM_S8_PATHS[label]
+    xq = _int8(gen, shape, extreme)
+    wq = _int8(gen, (cout, k, k, shape[-1]) if len(shape) == 4 else (cout, shape[-1]), extreme)
+    plan = _plan(xq, wq, stride, pad)
+    assert (plan.mode, plan.bn, plan.splits > 1) == (mode, bn, split), plan
+    wp = kernels.pack_gemm_s8_weight(wq)
+    rows = 1 if len(shape) == 4 else shape[0]
+    xs = torch.rand(() if rows == 1 and len(shape) == 4 else (rows, 1), generator=gen,
+                    device="cuda") * 0.01
+    ws = torch.rand(cout, generator=gen, device="cuda") * 0.01
+    for bias, dtype in ((None, torch.float32), (torch.randn(cout, generator=gen,
+                                                            device="cuda"), torch.bfloat16)):
+        got = kernels.gemm_s8_cuda(xq, wq, xs, ws, bias, stride, pad, dtype, wp)
+        want = gemm_s8_plain(xq, wq, xs, ws, bias, stride, pad, dtype)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal(got, want)
+
+
+def _quant_edge(dtype, per_row):
+    """(6, 96) activations on quant_act's edges: a row of zeros, a negative
+    extreme, values at exactly +-127 * s, and quotients one ulp either side
+    of k + 0.5 after rounding to the dtype (where rounding the quotient to
+    the dtype before rint decides the int8 value)."""
+    x = torch.zeros(6, 96, dtype=torch.float32)
+    x[1] = torch.linspace(-3, 2, 96)
+    x[1, 7] = -5.0  # the negative extreme sets the scale
+    s = (torch.full((), 5.0).to(dtype) / torch.full((), 127.0).to(dtype)).float()
+    x[2, :2] = torch.tensor([127.0, -127.0]) * s
+    x[2, 2] = 127.0 * s  # the extreme on the positive side too
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    mid = ((torch.arange(1, 48) + 0.5) * s).to(dtype).view(bits)  # around (h + 0.5) * s
+    x = x.to(dtype)
+    x[3, :47] = (mid - 1).view(dtype)  # one ulp of the dtype below
+    x[4, :47] = (mid + 1).view(dtype)  # and above
+    x[5, :47] = -mid.view(dtype)
+    x[3:, 95] = (127.0 * s).to(dtype)
+    return x
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["random", "edges", "zeros", "odd sizes", "unaligned",
+                                  "wide rows"])
+def test_quant_act_kernel_matches_plain(gen, case, dtype, per_row):
+    """Kernel F against quant_act on the same card tensors and on the CPU:
+    int8 values and scales bit for bit."""
+    from mnc_tpu_torch.ops.quant import quant_act
+
+    if case == "random":
+        x = (torch.randn(4, 37, 29, 64, generator=gen, device="cuda") * 3).to(dtype)
+    elif case == "edges":
+        x = _quant_edge(dtype, per_row).cuda()
+    elif case == "zeros":
+        x = torch.zeros(5, 40, dtype=dtype, device="cuda")
+    elif case == "odd sizes":
+        x = (torch.randn(3, 5, 7, 9, generator=gen, device="cuda") * 100).to(dtype)
+    elif case == "unaligned":  # one element past a 16-byte boundary: scalar loads
+        buf = (torch.randn(7 * 33 + 1, generator=gen, device="cuda") * 4).to(dtype)
+        x = buf[1:].view(7, 33)
+    else:
+        x = (torch.randn(3, 100352 + 8, generator=gen, device="cuda") * 2).to(dtype)
+    got_q, got_s = kernels.quant_act_cuda(x, per_row)
+    want_q, want_s = quant_act(x, per_row)
+    assert got_q.shape == x.shape and got_s.shape == want_s.shape and got_s.dtype == torch.float32
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+    cpu_q, cpu_s = quant_act(x.cpu(), per_row)
+    assert torch.equal(got_q.cpu(), cpu_q) and torch.equal(got_s.cpu(), cpu_s)
+
+
+def test_int8_layers_run_kernels_e_and_f(gen):
+    """ConvInt8 and DenseInt8 on the card launch F then E once each, and
+    equal the CPU."""
+    from mnc_tpu_torch.ops.quant import ConvInt8, DenseInt8
+
+    conv = ConvInt8(3, 64, 3, 1, 1).cuda()
+    dense = DenseInt8(4096, 256).cuda()
+    x = (torch.randn(1, 3, 4, 256, generator=gen, device="cuda") * 9).to(
+        torch.bfloat16).to(memory_format=torch.channels_last)
+    v = torch.randn(40, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        y, z = conv(x), dense(v)
+        counts = kernels.launch_counts()
+        assert (counts["gemm_s8_cuda"], counts["quant_act_cuda"]) == (2, 2)
+        assert torch.equal(y.cpu(), conv.cpu()(x.cpu()))
+        assert torch.equal(z.cpu(), dense.cpu()(v.cpu()))

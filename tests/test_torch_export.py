@@ -2,7 +2,8 @@
 
 - ``torch.library.opcheck`` on the CPU implementation of each custom op
   (``mnc::roi_warp``, ``mnc::nms_keep``, ``mnc::paste_binarize``,
-  ``mnc::block1``, ``mnc::gemm_s8``): schema (no aliasing, no mutation), fake shapes and
+  ``mnc::block1``, ``mnc::gemm_s8``, ``mnc::quant_act``): schema (no aliasing, no
+  mutation), fake shapes and
   dtypes against the real outputs, registration, and the op under
   AOTAutograd; and no output shares storage with an input, also where NMS
   suppresses nothing.
@@ -16,7 +17,8 @@
   ``ExportedPipeline.detect`` equal to ``MNCPipeline.detect``, every key
   bit for bit.
 - ``export_model --set TEST.INT8 True``: an artifact whose int8 layers are
-  ``mnc::gemm_s8`` nodes (the fake gives their shapes), whose detections
+  ``mnc::quant_act`` and ``mnc::gemm_s8`` nodes (the fakes give their
+  shapes), whose detections
   equal the eager int8 pipeline's bit for bit.
 """
 
@@ -35,7 +37,7 @@ from mnc_tpu_torch.models.mnc import MNC, MNCArch
 from mnc_tpu_torch.ops.block1 import block1_op
 from mnc_tpu_torch.ops.masks import _paste_axis_weights, paste_binarize_op
 from mnc_tpu_torch.ops.nms import nms_keep_op
-from mnc_tpu_torch.ops.quant import gemm_s8_op, quant_act
+from mnc_tpu_torch.ops.quant import gemm_s8_op, quant_act, quant_act_op
 from mnc_tpu_torch.ops.roi_warp import roi_warp_op
 from mnc_tpu_torch.pipeline.export import (ExportedPipeline, deserialize_inference,
                                            export_inference, exported_meta, save_exported)
@@ -79,6 +81,9 @@ def _op_cases():
         "gemm_s8 dense": (gemm_s8_op, (*quant_act(torch.randn(7, 40, generator=g), True),
                                        torch.randn(12, 40, generator=g),
                                        torch.randn(12, generator=g), 1, 0, torch.float32)),
+        "quant_act per tensor bf16": (quant_act_op, (
+            torch.randn(2, 5, 6, 16, generator=g).to(torch.bfloat16), False)),
+        "quant_act per row": (quant_act_op, (torch.randn(7, 40, generator=g), True)),
         "block1": (block1_op, (torch.randn(2, 8, 6, 3, generator=g) * 50,
                                torch.randn(64, 3, 3, 3, generator=g) * 0.1,
                                torch.randn(64, generator=g),
@@ -93,7 +98,8 @@ def test_custom_op_passes_opcheck_and_returns_a_fresh_tensor(name):
     torch.library.opcheck(op, args)
     out = op(*args)
     ptrs = {a.untyped_storage().data_ptr() for a in args if isinstance(a, torch.Tensor)}
-    assert out.untyped_storage().data_ptr() not in ptrs
+    for o in out if isinstance(out, tuple) else (out,):
+        assert o.untyped_storage().data_ptr() not in ptrs
 
 
 @pytest.fixture(scope="module")
@@ -217,7 +223,8 @@ def test_fused_block1_model_exports_with_block1_as_one_node():
 def test_int8_model_exports_with_gemm_s8_nodes(tmp_path):
     """``export_model --program --set TEST.INT8 True`` on an npz: the
     artifact holds the 13 trunk convolutions and fc_mask, fc6 and fc7 of
-    both head passes as ``mnc::gemm_s8`` nodes, and ``ExportedPipeline``
+    both head passes as ``mnc::quant_act`` and ``mnc::gemm_s8`` nodes, and
+    ``ExportedPipeline``
     detects what the eager int8 pipeline that ``serve`` builds from the same
     files detects, every key bit for bit."""
     from mnc_tpu_torch.tools import export_model, serve
@@ -251,6 +258,7 @@ def test_int8_model_exports_with_gemm_s8_nodes(tmp_path):
         graph = torch.export.load(io.BytesIO(blob)).graph
         targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
         assert targets.count("mnc.gemm_s8.default") == 13 + 2 * 3
+        assert targets.count("mnc.quant_act.default") == 13 + 2 * 3
         exported = ExportedPipeline(blob)
         rs = np.random.RandomState(6)
         for h, w in ((60, 120), (48, 96)):

@@ -134,9 +134,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.gemm_s8_cuda(torch.zeros(1, 4, 4, 16, dtype=torch.int8),
                              torch.zeros(8, 3, 3, 16, dtype=torch.int8), torch.ones(()),
                              torch.ones(8), None, 1, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.quant_act_cuda(torch.zeros(4, 16, dtype=torch.bfloat16), per_row=True)
     assert kernels.launch_counts() == {"roi_warp_cuda": 0, "roi_warp_bwd_cuda": 0,
                                        "nms_keep_cuda": 0, "paste_binarize_cuda": 0,
-                                       "block1_cuda": 0, "gemm_s8_cuda": 0}
+                                       "block1_cuda": 0, "gemm_s8_cuda": 0,
+                                       "quant_act_cuda": 0}
 
 
 def _keys(tree, prefix=""):
