@@ -90,7 +90,10 @@ Phases, each printing its lines before the two JSON lines at the end:
       steps at full width (``from_cfg(train=True)``, 2 images a step from
       ``TrainLoader``, 64 segments each; wall ms per step, peak memory;
       the trunk and the classify head move, the RPN and the mask head
-      move by weight decay alone, bit for bit); then a small f32 model's
+      move by weight decay alone, bit for bit); ``cfm_detect`` on the first
+      2 images with the ResNet-101 COCO configuration's conv5 head (81
+      classes, random FrozenBN leaves) and with a.'s VGG-16 under
+      ``TEST.INT8`` (kernels E and F); then a small f32 model's
       ``cfm_detect`` and CFM train step and ``tools/test_net --segdb`` on
       ``synthetic_8``, card against CPU;
    i. int8 serving (``TEST.INT8``, kernels F and E on every int8 layer):
@@ -105,7 +108,22 @@ Phases, each printing its lines before the two JSON lines at the end:
       then the ResNet-101 COCO configuration under ``TEST.INT8``, one
       request with the conv5 head and one with the fc head (checked as in
       a.), each against its bf16 cascade; then small f32 int8 models
-      (VGG-16, ResNet-50 with the conv5 head) card against CPU.
+      (VGG-16, ResNet-50 with the conv5 head) card against CPU;
+   j. real-format datasets: an SBD tree (8 images at VOC photo sizes, both
+      orientations; ``GTinst`` / ``GTcls`` structs written by
+      ``scipy.io.savemat``; PNG bytes under the reference's ``.jpg``
+      names) and a COCO tree (4 PNG images, 80 categories with COCO's ids,
+      RLE segmentations), written here without cv2; the ground truth fed
+      back as detections scores 1.0 on both; ``tools.train_net --imdb
+      voc_2012_seg_train`` at full width (``from_cfg(train=True)``) from
+      f.'s caffemodel (``--weights``), 4 steps with a snapshot at 2, and a
+      second run resumed from that snapshot (step 3's losses equal, step
+      4's within 1e-4); ``tools.test_net`` over the SBD tree on the trained
+      state (``pipe.detect``) and with its ground truth as ``--segdb``;
+      ``train_net`` (2 steps) and ``test_net --coco-ap`` (4 images) over the
+      COCO tree with the ResNet-101 COCO configuration's conv5 head; a small
+      f32 model's ``test_net`` over the SBD tree, plain and ``--segdb``,
+      card against CPU (identical AP tables).
 5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
    of phase 3, per shape where there are several; bounds from this run's
    inputs), then ``{"ok": true, ...}``.
@@ -1967,12 +1985,13 @@ def cfm_segdb(root, imdb, k=CFM_K_SERVE, seed=0):
     return out
 
 
-def cfm_serve_path(device_label, arch, imdb, segdb):
-    """``cfm_detect`` at full width (phase 4a's VGG-16, bf16, seeded init)
-    on the 8 images, each with its 300 segments, after one warm-up image.
-    The detections' arrays must be finite, some valid, and every valid
-    detection's box one of the image's refined segment boxes.  Returns the
-    launch counts of the 8 images."""
+def cfm_serve_path(device_label, arch, imdb, segdb, n_images=None, name="cfm_serve"):
+    """``cfm_detect`` at full width (phase 4a's VGG-16, bf16, seeded init;
+    or another ``arch``: a ResNet's FrozenBN leaves are drawn at random) on
+    the first ``n_images`` images (all 8 by default), each with its 300
+    segments, after one warm-up image.  The detections' arrays must be
+    finite, some valid, and every valid detection's box one of the image's
+    refined segment boxes.  Returns the launch counts of those images."""
     from mnc_tpu_torch.config import cfg
     from mnc_tpu_torch.data.loader import load_segments
     from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1981,9 +2000,11 @@ def cfm_serve_path(device_label, arch, imdb, segdb):
     from mnc_tpu_torch.pipeline.inference import PostCfg
 
     model = MNC(arch, device="cuda", seed=0)
+    if arch.trunk != "vgg16":  # at init every block is its shortcut
+        randomize_frozen_bn(model, 4)
     post = PostCfg.from_cfg()
     inputs = []
-    for i in imdb.image_index:
+    for i in imdb.image_index[:n_images]:
         ex = imdb.example(i)
         boxes, masks, valid, nseg = load_segments(segdb, i, CFM_K_SERVE, cfg.MASK_SIZE)
         if nseg != CFM_K_SERVE:
@@ -2003,9 +2024,9 @@ def cfm_serve_path(device_label, arch, imdb, segdb):
         lat.append(time.perf_counter() - t0)
         for key in ("boxes", "scores", "masks"):
             if not torch.isfinite(out[key]).all():
-                raise AssertionError(f"cfm_serve: {key} is not finite")
+                raise AssertionError(f"{name}: {key} is not finite")
         if out["canvas_masks"].shape != (post.max_per_image, *arch.canvas):
-            raise AssertionError(f"cfm_serve: canvas masks {tuple(out['canvas_masks'].shape)}")
+            raise AssertionError(f"{name}: canvas masks {tuple(out['canvas_masks'].shape)}")
         dets.append((out["boxes"][out["valid"]].cpu(), int(out["valid"].sum())))
         del out
     counts = launch_counts()
@@ -2014,21 +2035,22 @@ def cfm_serve_path(device_label, arch, imdb, segdb):
     worst = 0.0
     for x, (boxes, n_valid) in zip(inputs, dets):
         if n_valid == 0:
-            raise AssertionError("cfm_serve: an image has no valid detection")
+            raise AssertionError(f"{name}: an image has no valid detection")
         refined = cfm_apply(model, *x)["boxes"][x[4]].cpu()
         worst = max(worst, (boxes[:, None] - refined[None]).abs().amax(-1).min(1).values.max()
                     .item())
     if not worst <= 1e-3:
-        raise AssertionError(f"cfm_serve: a detection box is {worst} px from every refined "
+        raise AssertionError(f"{name}: a detection box is {worst} px from every refined "
                              "segment box")
     ms = sorted(x * 1e3 for x in lat)
-    log(f"cfm_serve: launches {counts}; valid detections per image {[n for _, n in dets]}; "
+    log(f"{name}: launches {counts}; valid detections per image {[n for _, n in dets]}; "
         f"every one a refined segment box (max diff {worst:.1e} px); peak memory {peak:.2f} GiB")
-    log(f"cfm_serve on {device_label}: ms per image (1 image, {CFM_K_SERVE} segments, "
-        f"{arch.num_classes} classes) median {float(np.median(ms)):.2f}, worst {ms[-1]:.2f} "
+    log(f"{name} on {device_label}: ms per image (1 image, {CFM_K_SERVE} segments, "
+        f"{arch.num_classes} classes, trunk {arch.trunk}, roi_conv5 {arch.roi_conv5}, int8 "
+        f"{arch.int8_inference}) median {float(np.median(ms)):.2f}, worst {ms[-1]:.2f} "
         f"(all: {', '.join(f'{x * 1e3:.2f}' for x in lat)})")
     busy, n_kernels, top, _ = traced(lambda: [cfm_detect(model, *x, post) for x in inputs])
-    log(f"cfm_serve traced on {device_label}: device busy {busy / len(inputs):.3f} ms per image "
+    log(f"{name} traced on {device_label}: device busy {busy / len(inputs):.3f} ms per image "
         f"({n_kernels / len(inputs):.0f} kernels) of the untraced median "
         f"{float(np.median(ms)):.2f} ms (idle share {1 - busy / sum(ms):.3f}); top kernels: "
         + top)
@@ -2468,6 +2490,322 @@ def int8_resnet_paths(device_label):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 4j: real-format datasets (SBD / VOC and COCO trees on disk)
+# ---------------------------------------------------------------------------
+
+VOC_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333))  # (h, w), both orientations
+COCO_SIZES = ((480, 640), (640, 480), (427, 640), (640, 427))
+# COCO's 80 category ids (1..90 less ten unused ones), so its head keeps 81 classes
+COCO_CATEGORY_IDS = tuple(i for i in range(1, 91)
+                          if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+N_VOC_IMAGES, N_COCO_IMAGES = 8, 4
+
+
+def _draw_instances(rs, h, w, num_classes, max_instances=4):
+    """A seeded picture of 1..max_instances ellipses and rectangles over a
+    noise background: (BGR uint8 image, [(class id, full bool mask)])."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = (rs.uniform(0, 1, (h, w, 3)) * 60 + 90).astype(np.uint8)
+    out = []
+    for _ in range(rs.randint(1, max_instances + 1)):
+        c = int(rs.randint(1, num_classes))
+        cy, cx = rs.uniform(0.2, 0.8) * h, rs.uniform(0.2, 0.8) * w
+        ry, rx = rs.uniform(0.08, 0.3) * h, rs.uniform(0.08, 0.3) * w
+        if rs.uniform() < 0.5:
+            m = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+        else:
+            m = (np.abs(yy - cy) <= ry) & (np.abs(xx - cx) <= rx)
+        colour = np.array([(37 * c) % 256, (91 * c) % 256, (151 * c) % 256])
+        img[m] = np.clip(colour + rs.randint(-20, 21, (int(m.sum()), 3)), 0, 255)
+        for prev in out:  # a later instance covers the earlier ones
+            prev[1][m] = False
+        out.append((c, m))
+    return img, [(c, m) for c, m in out if m.any()]
+
+
+def write_sbd_tree(root, n_images=N_VOC_IMAGES, sizes=VOC_SIZES, seed=0, max_instances=4,
+                   num_classes=21):
+    """An SBD tree in the benchmark_RELEASE layout under ``root``, without
+    cv2: per image 1..``max_instances`` instances of classes below
+    ``num_classes``, the instance and class maps as ``GTinst`` / ``GTcls``
+    structs (``scipy.io.savemat``), the picture as PNG bytes under the
+    reference's ``img/<id>.jpg`` name, and ``train.txt`` / ``val.txt``
+    listing every id.  Returns the ids."""
+    from scipy.io import savemat
+
+    from mnc_tpu_torch.utils import png
+
+    rs = np.random.RandomState(seed)
+    ds = os.path.join(root, "benchmark_RELEASE", "dataset")
+    for sub in ("inst", "cls", "img"):
+        os.makedirs(os.path.join(ds, sub), exist_ok=True)
+    ids = []
+    for k in range(n_images):
+        h, w = sizes[k % len(sizes)]
+        index = f"2008_{k:06d}"
+        img, insts = _draw_instances(rs, h, w, num_classes, max_instances)
+        inst = np.zeros((h, w), np.uint8)
+        clsm = np.zeros((h, w), np.uint8)
+        for iid, (c, m) in enumerate(insts, start=1):
+            inst[m], clsm[m] = iid, c
+        cats = np.array([[c] for c, _ in insts], np.float64)
+        savemat(os.path.join(ds, "inst", f"{index}.mat"),
+                {"GTinst": {"Segmentation": inst, "Categories": cats}})
+        savemat(os.path.join(ds, "cls", f"{index}.mat"),
+                {"GTcls": {"Segmentation": clsm,
+                           "CategoriesPresent": np.unique(cats).astype(np.float64)}})
+        png.imwrite(os.path.join(ds, "img", f"{index}.jpg"), img)
+        ids.append(index)
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+    return ids
+
+
+def write_coco_tree(root, split, n_images=N_COCO_IMAGES, sizes=COCO_SIZES, seed=1,
+                    category_ids=COCO_CATEGORY_IDS):
+    """A COCO tree under ``root`` without cv2: ``annotations/instances_
+    <split>.json`` with the given categories, every segmentation compressed
+    RLE (``data.coco.encode_coco_rle``; polygons would need cv2), one crowd
+    and one tiny annotation that the reader leaves out, and PNG images under
+    ``images/<split>/``.  Returns the json's path."""
+    import json
+
+    from mnc_tpu_torch.data.coco import encode_coco_rle
+    from mnc_tpu_torch.utils import png
+
+    rs = np.random.RandomState(seed)
+    images, anns = [], []
+    for k in range(n_images):
+        h, w = sizes[k % len(sizes)]
+        fname = f"{split}_{k:06d}.png"
+        img, insts = _draw_instances(rs, h, w, len(category_ids) + 1)
+        png.imwrite(os.path.join(root, "images", split, fname), img)
+        images.append({"id": 100 + k, "file_name": fname, "height": h, "width": w})
+        extra = []
+        if k == 0:  # a crowd region and a speck: both filtered out by COCOSeg
+            crowd = np.zeros((h, w), bool)
+            crowd[:20, :30] = True
+            speck = np.zeros((h, w), bool)
+            speck[h - 3:, w - 3:] = True
+            extra = [(1, crowd, 1), (2, speck, 0)]
+        for c, m, crowd in [(c, m, 0) for c, m in insts] + extra:
+            ys, xs = np.nonzero(m)
+            anns.append({"id": len(anns) + 1, "image_id": 100 + k,
+                         "category_id": category_ids[c - 1], "iscrowd": crowd,
+                         "area": float(m.sum()),
+                         "bbox": [float(xs.min()), float(ys.min()),
+                                  float(xs.max() - xs.min() + 1),
+                                  float(ys.max() - ys.min() + 1)],
+                         "segmentation": encode_coco_rle(m)})
+    path = os.path.join(root, "annotations", f"instances_{split}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": i, "name": f"category_{i}"}
+                                  for i in category_ids]}, f)
+    return path
+
+
+def run_tool(tool, argv):
+    """``mnc_tpu_torch.tools.<tool>.main(argv)`` in this process with the
+    cfg restored after it: (its standard output, seconds, launch counts)."""
+    import importlib
+    import io
+
+    from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    main = importlib.import_module(f"mnc_tpu_torch.tools.{tool}").main
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with cfg_restored(), contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{tool} {argv} returned {rc}:\n{buf.getvalue()[-2000:]}")
+    return buf.getvalue(), seconds, counts
+
+
+def _ap_table(stdout):
+    lines = stdout.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("~~~~~~"))
+    return "\n".join(lines[start:])
+
+
+def _done(stdout):
+    """train_net's closing line's step average (snapshots included)."""
+    return next(ln for ln in stdout.splitlines() if ln.startswith("done:")).split("; ")[0]
+
+
+def _metrics(run_dir):
+    import json
+
+    with open(os.path.join(run_dir, "train_metrics.jsonl")) as f:
+        return {r["step"]: r for r in map(json.loads, f)}
+
+
+def oracle_segdb(imdb, out):
+    """A segdb (``tools/prepare_mcg_maskdb`` records) of each image's
+    ground-truth instances: boxes in image coordinates, box-frame masks."""
+    import pickle
+
+    os.makedirs(out, exist_ok=True)
+    for entry, masks in zip(imdb.roidb(), imdb.maskdb()):
+        with open(os.path.join(out, f"{entry['index']}.pkl"), "wb") as f:
+            pickle.dump({"index": entry["index"], "boxes": entry["boxes"],
+                         "masks": masks["masks"]}, f)
+    return out
+
+
+def oracle_scores(data_dir, coco_split):
+    """The ground truth fed back as detections through ``imdb.evaluate``
+    scores 1.0 on both trees (the readers and the evaluator run here)."""
+    from mnc_tpu_torch.data.coco import COCOSeg
+    from mnc_tpu_torch.data.pascal_voc import PascalVOCSeg
+
+    for name, imdb, threshs in (
+            ("SBD", PascalVOCSeg("val", os.path.join(data_dir, "sbd"),
+                                 cache_dir=os.path.join(data_dir, "cache")), (0.5, 0.7)),
+            ("COCO", COCOSeg(coco_split, os.path.join(data_dir, "coco"),
+                             cache_dir=os.path.join(data_dir, "cache")), (0.5, 0.7, "avg"))):
+        gt = imdb.gt_instances()
+        dets = [{"image_id": i, "class_id": g["class_id"], "score": 1.0, "mask": g["mask"]}
+                for i, gs in gt.items() for g in gs]
+        res = imdb.evaluate(dets, iou_threshs=threshs)
+        maps = {t: r["map"] for t, r in res.items()}
+        log(f"oracle {name} ({imdb.num_images} images, {len(dets)} instances, "
+            f"{imdb.num_classes} classes): mAP^r {maps}")
+        if not all(abs(v - 1.0) < 1e-9 for v in maps.values()):
+            raise AssertionError(f"oracle {name}: the ground truth scores {maps}, not 1.0")
+
+
+def real_data_paths(device_label, tmp, caffemodel):
+    """Phase 4j: the trees written here (8 SBD images at VOC photo sizes,
+    4 COCO images of 80 categories), then ``train_net`` and ``test_net``
+    over them at full width, each path with its launch counts; the resumed
+    training against the uninterrupted one; the ground-truth oracle; and a
+    small f32 model's ``test_net`` (and ``--segdb``) over the SBD tree, card
+    against CPU.  Returns the counts by path."""
+    from mnc_tpu_torch.data.pascal_voc import PascalVOCSeg
+
+    data = os.path.join(tmp, "real_data")
+    t0 = time.perf_counter()
+    write_sbd_tree(os.path.join(data, "sbd"))
+    write_coco_tree(os.path.join(data, "coco"), "synth")
+    log(f"real-format trees: {N_VOC_IMAGES} SBD images ({VOC_SIZES}), {N_COCO_IMAGES} COCO "
+        f"images of {len(COCO_CATEGORY_IDS)} categories, written in "
+        f"{time.perf_counter() - t0:.1f} s (PNG under .jpg names, RLE segmentations)")
+    oracle_scores(data, "synth")
+    by_path = {}
+    where = ["DATA_DIR", data]
+
+    # train_voc: 4 steps with a snapshot at 2; a second run resumes from it
+    full, resumed = os.path.join(tmp, "train_voc"), os.path.join(tmp, "train_voc_resumed")
+    base = ["--imdb", "voc_2012_seg_train", "--weights", caffemodel, "--iters", "4",
+            "--print-every", "1", "--device", "cuda"]
+    out, sec, counts = run_tool("train_net", base + ["--out", full, "--set", *where,
+                                                     "TRAIN.SNAPSHOT_ITERS", "2"])
+    ck2 = os.path.join(full, "ckpt_00000002")
+    os.makedirs(os.path.join(resumed, "ckpt_00000002"))
+    os.link(os.path.join(ck2, "train_state.npz"),
+            os.path.join(resumed, "ckpt_00000002", "train_state.npz"))
+    out2, sec2, counts2 = run_tool("train_net", base + ["--out", resumed, "--set", *where])
+    if "resumed from iter 2" not in out2:
+        raise AssertionError("train_voc: the second run did not resume from step 2")
+    by_path["train_voc"] = {k: counts[k] + counts2[k] for k in counts}
+    a, b = _metrics(full), _metrics(resumed)
+    keys = [k for k in a[3] if k not in ("step", "time", "lr")]
+    for step in (1, 2, 3, 4):
+        if not all(np.isfinite(a[step][k]) for k in keys):
+            raise AssertionError(f"train_voc: a loss of step {step} is not finite: {a[step]}")
+    d3 = max(abs(a[3][k] - b[3][k]) for k in keys)
+    d4 = max(abs(a[4][k] - b[4][k]) / max(abs(a[4][k]), 1e-6) for k in keys)
+    log(f"train_voc (VGG-16 full width, --weights {os.path.basename(caffemodel)}): "
+        + "; ".join(f"step {s}: total {a[s]['total']:.6f}" for s in (1, 2, 3, 4))
+        + f"; resumed run steps 3-4: total {b[3]['total']:.6f}, {b[4]['total']:.6f}; "
+        f"launches {by_path['train_voc']}")
+    log(f"train_voc resume: step 3 max |loss diff| {d3:.1e} (must be 0: it starts from the "
+        f"same snapshot), step 4 max relative diff {d4:.1e} (tolerance 1e-4: the float atomics "
+        "of A' and cuDNN's backward sum step 3's gradients in a run-dependent order)")
+    if d3 != 0.0 or d4 > 1e-4:
+        raise AssertionError("train_voc: the resumed losses differ from the uninterrupted run's")
+    log(f"train_voc on {device_label}: uninterrupted run {sec:.1f} s (4 steps, 2 snapshots), "
+        f"resumed run {sec2:.1f} s (2 steps, 1 snapshot), model build and weight import "
+        f"included; train_net's own step average: {_done(out)} / {_done(out2)}")
+
+    # test_voc and test_voc_segdb on the trained state
+    test = ["--imdb", "voc_2012_seg_val", "--ckpt", full, "--device", "cuda"]
+    out, sec, by_path["test_voc"] = run_tool("test_net", test + ["--set", *where])
+    log(f"test_voc on {device_label}: {N_VOC_IMAGES} images through pipe.detect in {sec:.1f} s "
+        f"(model build included); {out.splitlines()[-1]}; launches {by_path['test_voc']}")
+    imdb = PascalVOCSeg("val", os.path.join(data, "sbd"), cache_dir=os.path.join(data, "cache"))
+    segdb = oracle_segdb(imdb, os.path.join(tmp, "voc_oracle_segdb"))
+    out, sec, by_path["test_voc_segdb"] = run_tool(
+        "test_net", test + ["--segdb", segdb, "--set", *where])
+    log(f"test_voc_segdb on {device_label}: {N_VOC_IMAGES} images, gt instances as segments, in "
+        f"{sec:.1f} s; {out.splitlines()[-1]}; launches {by_path['test_voc_segdb']}")
+
+    # train_coco and test_coco: the ResNet-101 COCO configuration, conv5 head
+    coco = ["--imdb", "coco_synth", "--cfg", os.path.join(REPO, "experiments", "cfgs",
+                                                          "mnc_coco_resnet101.yml"),
+            "--device", "cuda"]
+    coco_run = os.path.join(tmp, "train_coco")
+    out, sec, by_path["train_coco"] = run_tool(
+        "train_net", coco + ["--iters", "2", "--print-every", "1", "--out", coco_run,
+                             "--set", "NET.ROI_CONV5", "True", *where])
+    m = _metrics(coco_run)
+    if not all(np.isfinite(v) for r in m.values() for v in r.values()) or "81 classes" not in out:
+        raise AssertionError(f"train_coco: {out[-1500:]}")
+    log(f"train_coco on {device_label} (ResNet-101 conv5, 81 classes): 2 steps in {sec:.1f} s "
+        f"(model build, 1 snapshot included; {_done(out)}); total {m[1]['total']:.4f}, "
+        f"{m[2]['total']:.4f}; launches {by_path['train_coco']}")
+    out, sec, by_path["test_coco"] = run_tool(
+        "test_net", coco + ["--ckpt", coco_run, "--coco-ap", "--set", "NET.ROI_CONV5", "True",
+                            *where])
+    if "AP^r@[.5:.95] = " not in out:
+        raise AssertionError(f"test_coco: no averaged AP line: {out[-800:]}")
+    log(f"test_coco on {device_label}: {N_COCO_IMAGES} images in {sec:.1f} s; "
+        f"{out.splitlines()[-1]}; launches {by_path['test_coco']}")
+    small_real_test_net_agrees(tmp, data, segdb)
+    return by_path
+
+
+def small_real_test_net_agrees(tmp, data, segdb):
+    """A small f32 model's ``test_net`` over the SBD tree (real images
+    scaled into a 128x160 canvas), plain and ``--segdb``, on the card and on
+    the CPU: the same AP tables."""
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.utils.checkpoint import jax_params_from_state_dict, save_npz
+
+    small = ["NET.FC_DIM", "64", "NET.MASK_FC_DIM", "32", "NET.COMPUTE_DTYPE", "float32",
+             "STATIC.CANVAS", "[128, 160]", "TEST.SCALES", "[96]", "TEST.MAX_SIZE", "160",
+             "NET.ANCHOR_SCALES", "[2, 4, 8]", "STATIC.TEST_PRE_NMS_TOP_N", "256",
+             "STATIC.TEST_POST_NMS_TOP_N", "64", "DATA_DIR", data]
+    arch = MNCArch(canvas=(128, 160), anchor_scales=(2, 4, 8), fc_dim=64, mask_fc_dim=32,
+                   compute_dtype=torch.float32)
+    npz = os.path.join(tmp, "voc_small.npz")
+    save_npz(npz, jax_params_from_state_dict(MNC(arch, device="cpu", seed=4).state_dict()),
+             {"bbox_pred_normalized": True})
+    for extra in ([], ["--segdb", segdb]):
+        tables = {}
+        for dev in ("cuda", "cpu"):
+            out, sec, _ = run_tool("test_net", ["--imdb", "voc_2012_seg_val", "--npz", npz,
+                                                "--device", dev, *extra, "--set", *small])
+            tables[dev] = _ap_table(out)
+            log(f"small f32 test_net {' '.join(extra[:1])} over the SBD tree on {dev}: "
+                f"{sec:.1f} s; {out.splitlines()[-1]}")
+        if tables["cuda"] != tables["cpu"]:
+            raise AssertionError("small real-image test_net: the AP tables of the card and "
+                                 "the CPU differ:\n" + tables["cuda"] + "\n---\n"
+                                 + tables["cpu"])
+    log("small f32 test_net over the SBD tree, plain and --segdb: the AP tables of the card "
+        "and the CPU are identical")
+
+
 CHECKS = {"roi_warp": check_roi_warp, "roi_warp_bwd": check_roi_warp_bwd, "nms": check_nms,
           "paste_binarize": check_paste, "block1": check_block1, "gemm_s8": check_gemm_s8,
           "quant_act": check_quant_act}
@@ -2576,17 +2914,32 @@ def main_paths(g, smi) -> dict:
         torch.cuda.empty_cache()
         by_path["cfm_train"] = cfm_train_path(label, imdb, segdb)
         torch.cuda.empty_cache()
+        with coco_cfg(True):  # CFM on the ResNet-101 COCO trunk, conv5 head
+            by_path["cfm_serve_resnet101_conv5"] = cfm_serve_path(
+                label, MNCArch.from_cfg(), imdb, segdb, 2, "cfm_serve_resnet101_conv5")
+        torch.cuda.empty_cache()
+        by_path["cfm_serve_int8"] = cfm_serve_path(
+            label, dataclasses.replace(vgg, int8_inference=True), imdb, segdb, 2,
+            "cfm_serve_int8")
+        torch.cuda.empty_cache()
         small_cfm_detect_agrees()
         small_cfm_train_step_agrees()
         test_net_segdb_agrees(tmp)
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    # phase 4i: int8 serving
-    by_path["serve_int8"] = int8_serve_path(label, vgg)
+        # phase 4i: int8 serving
+        by_path["serve_int8"] = int8_serve_path(label, vgg)
+        torch.cuda.empty_cache()
+        by_path.update(int8_resnet_paths(label))
+        for arch_kw in (None, RESNET_SMALL):
+            small_int8_model_agrees(arch_kw)
+        torch.cuda.empty_cache()
+
+        # phase 4j: real-format datasets, with phase 4f's caffemodel as --weights
+        t0 = time.perf_counter()
+        by_path.update(real_data_paths(label, tmp, os.path.join(tmp, "mnc_vgg16.caffemodel")))
+        log(f"phase 4j on {label}: {time.perf_counter() - t0:.1f} s in all")
     torch.cuda.empty_cache()
-    by_path.update(int8_resnet_paths(label))
-    for arch_kw in (None, RESNET_SMALL):
-        small_int8_model_agrees(arch_kw)
     return by_path
 
 
@@ -2615,11 +2968,16 @@ def report_kernels(results, by_path, t_start) -> None:
     serving = ("serve", "serve_resnet101_conv5", "serve_resnet101_fc")
     training = ("train", "train_resnet101_conv5")
     serving += ("detect_many", "serve_http", "serve_http_single", "exported")
-    int8 = ("serve_int8", "serve_int8_resnet101_conv5", "serve_int8_resnet101_fc")
-    must = {"roi_warp": serving + training + int8 + ("cfm_serve", "cfm_train"),
-            "roi_warp_bwd": training + ("cfm_train",),
-            "nms": serving + training + int8 + ("cfm_serve",),
-            "paste_binarize": serving + int8 + ("cfm_serve",),
+    int8 = ("serve_int8", "serve_int8_resnet101_conv5", "serve_int8_resnet101_fc",
+            "cfm_serve_int8")
+    cfm = ("cfm_serve", "cfm_serve_resnet101_conv5", "cfm_serve_int8")
+    real_train, real_test = ("train_voc", "train_coco"), ("test_voc", "test_voc_segdb",
+                                                          "test_coco")
+    must = {"roi_warp": serving + training + int8 + cfm + ("cfm_train",) + real_train
+            + real_test,
+            "roi_warp_bwd": training + ("cfm_train",) + real_train,
+            "nms": serving + training + int8 + cfm + real_train + real_test,
+            "paste_binarize": serving + int8 + cfm + real_test,
             "block1": ("train_fused_block1",),
             "gemm_s8": int8,
             "quant_act": int8}

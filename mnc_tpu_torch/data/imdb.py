@@ -1,6 +1,6 @@
 """Dataset base class — port of ``mnc_tpu/data/imdb.py`` (≙ reference
 ``lib/db/imdb.py``), and ``get_imdb``, the name → imdb factory of
-``mnc_tpu/data/pascal_voc.py`` for the datasets the port has.
+``mnc_tpu/data/pascal_voc.py`` (kept in ``data/pascal_voc.py``).
 
 An imdb owns: a name, an ordered image index, per-image annotation records
 (the *roidb*: gt boxes / classes), per-image instance masks (the *maskdb*),
@@ -82,15 +82,9 @@ class IMDB:
 
 
 def get_imdb(name: str) -> IMDB:
-    """Name → imdb.  The port knows ``synthetic[_<n>]`` (n images, 64 by
-    default); the VOC, SBD and COCO imdbs are not ported yet."""
-    if name.startswith("synthetic"):
-        from mnc_tpu_torch.data.synth_imdb import SyntheticIMDB
+    """Name → imdb: ``data.pascal_voc.get_imdb``, which resolves
+    ``voc_<year>_<set>``, ``voc_2012_seg_<set>``, ``coco_<split>``,
+    ``synthetic[_<n>]`` and the names given to ``register_imdb``."""
+    from mnc_tpu_torch.data.pascal_voc import get_imdb as factory
 
-        n = int(name.split("_")[1]) if "_" in name else 64
-        return SyntheticIMDB(num_images=n)
-    if name.startswith(("voc_", "coco_")):
-        raise NotImplementedError(
-            f"imdb {name!r}: the VOC, SBD and COCO imdbs are not ported yet "
-            "(ROADMAP Queue 1 item 4); the port knows synthetic[_<n>]")
-    raise KeyError(f"unknown imdb {name!r}")
+    return factory(name)

@@ -11,10 +11,11 @@ the batches.  Arrays are numpy, as in the JAX package; the train step's
 caller moves them to the device.
 
 Images come from the imdb: ``synthetic://`` paths from the imdb itself,
-anything else through ``cv2.imread``, imported when it is needed (the
-machine with the GPU has no cv2, so there the loader runs on synthetic
-imdbs only).  Masks are resized with ``utils.blob.resize_mask_area``, cv2's
-INTER_AREA arithmetic in numpy.
+files through ``utils.png.imread``, which returns what ``cv2.imread`` does:
+PNG content (whatever the file's name) is decoded without cv2, anything
+else (JPEG) goes to cv2 and is an error where cv2 does not import, as on
+the machine with the GPU.  Masks are resized with
+``utils.blob.resize_mask_area``, cv2's INTER_AREA arithmetic in numpy.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 
 from mnc_tpu_torch.config import cfg
 from mnc_tpu_torch.data.imdb import IMDB
+from mnc_tpu_torch.utils import png
 from mnc_tpu_torch.utils.blob import prep_im_for_blob, resize_mask_area
 
 
@@ -35,12 +37,7 @@ def load_image(imdb: IMDB, i: int) -> np.ndarray:
     path = imdb.image_path_at(i)
     if path.startswith("synthetic://"):
         return imdb.example(i)["image"]
-    import cv2
-
-    im = cv2.imread(path)
-    if im is None:
-        raise FileNotFoundError(f"failed to read {path}")
-    return im
+    return png.imread(path)
 
 
 def _resize_masks(masks: np.ndarray, size: int) -> np.ndarray:

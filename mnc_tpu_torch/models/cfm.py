@@ -134,7 +134,7 @@ def cfm_loss(model: MNC, batch: dict, draws: CfmDraws, arch: MNCArch, train_cfg:
     flat = roi_feat.reshape(b * r, *roi_feat.shape[2:])
     pseudo = mask_pseudo_logits(tgt.seg_masks.reshape(b * r, *tgt.seg_masks.shape[2:]),
                                 arch.mask_size)
-    keep = tuple(k.reshape(b * r, -1) for k in draws.drop)
+    keep = None if draws.drop is None else tuple(k.reshape(b * r, -1) for k in draws.drop)
     cls_logits, bbox_pred = model.classify_stage(flat, pseudo, True, keep)
     cls_l, bbox_l = cls_bbox_losses(cls_logits.reshape(b, r, -1), bbox_pred.reshape(b, r, -1),
                                     tgt.labels, tgt.bbox_targets, tgt.bbox_weight, arch,

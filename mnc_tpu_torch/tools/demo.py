@@ -10,9 +10,11 @@ seeded random init (a pipeline smoke).
         [--im-dir data/demo] [--out data/demo/out] [--conf 0.7] \\
         [--synthetic] [--stages 5] [--cfg FILE] [--set KEY VAL ...] [--device cpu]
 
-Images are read with ``cv2`` or PIL, whichever imports, and the tool says
-so when neither does; overlays are written with either, or as PNG by the
-standard library.  ``--synthetic`` reads no file.  It runs on the GPU
+Images are read with ``cv2`` or PIL, whichever imports; where neither does
+(as on the machine with the GPU) PNG files are read by ``utils.png.imread``
+(cv2's result, bit for bit) and any other format is an error that names
+the file.  Overlays are written with cv2 or PIL, or as PNG by the standard
+library.  ``--synthetic`` reads no file.  It runs on the GPU
 unless ``--device cpu`` is given, and raises without one.
 """
 
@@ -22,8 +24,6 @@ import argparse
 import glob
 import os
 import os.path as osp
-import struct
-import zlib
 
 import numpy as np
 
@@ -53,7 +53,8 @@ def parse_args(argv=None):
 
 
 def _imread(path: str) -> np.ndarray:
-    """BGR uint8 (H, W, 3) with cv2, else PIL."""
+    """BGR uint8 (H, W, 3) with cv2, else PIL, else ``utils.png.imread``
+    (PNG content only; anything else raises an error that names the file)."""
     try:
         import cv2
     except ImportError:
@@ -66,22 +67,18 @@ def _imread(path: str) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError:
-        raise RuntimeError(f"reading {path} needs cv2 or PIL; neither imports here "
-                           "(--synthetic reads no file)") from None
+        from mnc_tpu_torch.utils import png
+
+        return png.imread(path)
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))[..., ::-1].copy()
 
 
 def _png_bytes(rgb: np.ndarray) -> bytes:
     """An 8-bit RGB PNG of (H, W, 3) uint8, by the standard library."""
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    from mnc_tpu_torch.utils.png import encode_png
 
-    h, w = rgb.shape[:2]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw.tobytes())) + chunk(b"IEND", b""))
+    return encode_png(rgb)
 
 
 def _imwrite(path: str, bgr: np.ndarray) -> None:

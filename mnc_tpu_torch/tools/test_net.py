@@ -9,16 +9,25 @@ prints mAP^r @0.5/0.7 with the reference-style per-class AP table.
         [--cfg FILE] [--set KEY VAL ...] [--conf 0.0] [--eval-batch N] \\
         [--cache out.pkl] [--coco-ap] [--segdb DIR [--seg-top-k 300]] [--device cpu]
 
-``--npz`` reads a ``save_npz`` export or the port's ``train_net`` state;
-``--ckpt`` a step directory of ``train_net`` or the newest one under a run
-directory.  ``--segdb DIR`` evaluates in CFM mode (``models/cfm.py``): each
-image's top ``--seg-top-k`` precomputed segment proposals (the records of
+``--imdb`` is any name ``data.imdb.get_imdb`` resolves: ``synthetic[_<n>]``
+(whose images are canvases already; the architecture shrinks to them),
+``voc_2012_seg_<set>`` (SBD) or ``coco_<split>`` under ``cfg.DATA_DIR``, or a
+registered name.  A real imdb takes ``MNCArch.from_cfg`` (the canvas of
+``cfg.STATIC.CANVAS``) with the imdb's class count; each image is read by
+``data.loader.load_image`` (PNG without cv2, anything else with it) and
+goes through ``MNCPipeline.detect``, whose full-resolution masks are
+evaluated against the imdb's ground truth.  ``--npz`` reads a ``save_npz``
+export or the port's ``train_net`` state; ``--ckpt`` a step directory of
+``train_net`` or the newest one under a run directory.  ``--segdb DIR``
+evaluates in CFM mode (``models/cfm.py``): each image's top
+``--seg-top-k`` precomputed segment proposals (the records of
 ``tools.prepare_mcg_maskdb``, in image coordinates) are classified by the
-trunk and the classify head instead of running the RPN, one image at a
-time (``cfm_detect``).  It runs on the GPU unless ``--device cpu`` is
-given, and raises without one.  The port knows the synthetic imdbs only
-(``synthetic[_<n>]``, whose images are canvases already); the JAX tool's
-``--dp`` is not ported.
+trunk and the classify head instead of running the RPN, one image at a time
+(``cfm_detect``); a real image is scaled and padded into the canvas
+(``prep_im_for_blob``), its segments scaled alike, and the canvas masks
+cropped to the image's extent and resized back to it.  ``--coco-ap`` adds
+the COCO-style AP^r@[.5:.95].  It runs on the GPU unless ``--device cpu``
+is given, and raises without one.  The JAX tool's ``--dp`` is not ported.
 """
 
 from __future__ import annotations
@@ -89,10 +98,12 @@ def main(argv=None) -> int:
     from mnc_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
     from mnc_tpu_torch.data.eval_sds import collect_detections, print_ap_table
     from mnc_tpu_torch.data.imdb import get_imdb
-    from mnc_tpu_torch.data.loader import load_segments
+    from mnc_tpu_torch.data.loader import load_image, load_segments
     from mnc_tpu_torch.models.cfm import cfm_detect
     from mnc_tpu_torch.models.mnc import MNCArch
-    from mnc_tpu_torch.pipeline.inference import PostCfg, unpack_canvas_masks
+    from mnc_tpu_torch.pipeline.inference import (PostCfg, _resize_mask_to,
+                                                  unpack_canvas_masks)
+    from mnc_tpu_torch.utils.blob import prep_im_for_blob
     from mnc_tpu_torch.utils.checkpoint import checkpoint_npz
     from mnc_tpu_torch.utils.device import resolve_device
     from mnc_tpu_torch.utils.timer import Timer
@@ -104,9 +115,14 @@ def main(argv=None) -> int:
         cfg_from_list(args.set_cfgs)
 
     imdb = get_imdb(args.imdb)
-    arch = MNCArch.from_cfg(train=False, n_stages=args.stages, canvas=imdb.gen.canvas_hw,
-                            num_classes=imdb.num_classes, anchor_scales=(2, 4, 8),
-                            rpn_min_size=4.0)
+    synthetic = args.imdb.startswith("synthetic")
+    if synthetic:
+        arch = MNCArch.from_cfg(train=False, n_stages=args.stages, canvas=imdb.gen.canvas_hw,
+                                num_classes=imdb.num_classes, anchor_scales=(2, 4, 8),
+                                rpn_min_size=4.0)
+    else:
+        arch = MNCArch.from_cfg(train=False, n_stages=args.stages,
+                                num_classes=imdb.num_classes)
     npz = checkpoint_npz(args.ckpt) if args.ckpt and not args.npz else args.npz
     pipe, arch = build_pipeline(arch, device, args.caffemodel, npz, args.remap,
                                 PostCfg.from_cfg(score_thresh=args.conf))
@@ -136,26 +152,47 @@ def main(argv=None) -> int:
         print(f"loaded {len(detections)} cached detections from {args.cache}")
     else:
         for n, i in enumerate(imdb.image_index):
-            ex = imdb.example(i)
+            if synthetic:
+                ex = imdb.example(i)
+                canvas, info = ex["image"], ex["im_info"]
+            else:
+                im = load_image(imdb, n)
             if args.segdb:
+                timer.tic()
+                if not synthetic:  # scaled and padded on the model's device
+                    canvas, info = prep_im_for_blob(im, target_size=cfg.TEST.SCALES[0],
+                                                    max_size=cfg.TEST.MAX_SIZE,
+                                                    canvas_hw=tuple(arch.canvas),
+                                                    device=device)
                 boxes, masks, valid, _ = load_segments(args.segdb, i, args.seg_top_k,
                                                        cfg.MASK_SIZE)
-                boxes = boxes * float(ex["im_info"][2])  # segdb boxes are image coordinates
-                timer.tic()
-                out = host(cfm_detect(pipe.model, ex["image"], ex["im_info"], boxes, masks,
-                                      valid, pipe.post))
+                boxes = boxes * float(info[2])  # segdb boxes are image coordinates
+                out = cfm_detect(pipe.model, canvas, info, boxes, masks, valid, pipe.post)
+                if not synthetic:  # unmold: crop to the image's extent, resize back
+                    sh, sw = int(info[0]), int(info[1])
+                    out["canvas_masks"] = _resize_mask_to(out["canvas_masks"][:, :sh, :sw],
+                                                          im.shape[:2])
+                    out["boxes"] = out["boxes"] / float(info[2])
+                out = host(out)
                 timer.toc()
                 detections.extend(collect_detections(out, i, args.conf))
                 continue
-            if args.eval_batch > 1:
-                pending.append((i, ex["image"], ex["im_info"]))
+            if not synthetic:
+                timer.tic()
+                out = pipe.detect(im)
+                timer.toc()
+                out["canvas_masks"] = out["full_masks"]
+                detections.extend(collect_detections(out, i, args.conf))
+            elif args.eval_batch > 1:
+                pending.append((i, canvas, info))
                 if len(pending) == args.eval_batch or n == imdb.num_images - 1:
                     flush_batch()
                 continue
-            timer.tic()
-            out = host(pipe.detect_canvas(ex["image"], ex["im_info"]))
-            timer.toc()
-            detections.extend(collect_detections(out, i, args.conf))
+            else:
+                timer.tic()
+                out = host(pipe.detect_canvas(canvas, info))
+                timer.toc()
+                detections.extend(collect_detections(out, i, args.conf))
             if (n + 1) % 50 == 0:
                 print(f"im_detect: {n + 1}/{imdb.num_images} {timer.average_time:.3f}s/im")
         if args.cache:

@@ -74,14 +74,17 @@ class CfmDraws(NamedTuple):
     leading image axis B."""
 
     roi: tuple  # 2 × (B, pool) uniforms: ranks of fg / bg segments
-    drop: tuple  # 2 × (B, R, fc_dim) bool keep-masks after fc6 / fc7
+    drop: tuple | None  # 2 × (B, R, fc_dim) bool keep-masks after fc6 / fc7; None for
+    # the conv5 head (``arch.roi_conv5``), which has no dropout
 
 
 def draw_cfm_randoms(gen: torch.Generator, arch: MNCArch, train_cfg: dict, n_images: int,
                      n_segments: int, max_gt: int, device=None,
                      keep_prob: float = 0.5) -> CfmDraws:
     """All of a CFM step's random numbers from ``gen`` (whose device is the
-    default for ``device``)."""
+    default for ``device``).  The per-RoI conv5 head (``arch.roi_conv5``)
+    has no dropout, so none is drawn for it: the JAX package's ``cfm_loss``
+    hands it a dropout key that no module uses."""
     device = gen.device if device is None else device
     r = train_cfg["BATCH_SIZE"]
     pool = T.cfm_pool_size(n_segments, max_gt, r)
@@ -89,8 +92,10 @@ def draw_cfm_randoms(gen: torch.Generator, arch: MNCArch, train_cfg: dict, n_ima
     def uni(*shape):
         return torch.rand(shape, generator=gen, device=device)
 
-    return CfmDraws((uni(n_images, pool), uni(n_images, pool)),
-                    tuple(uni(n_images, r, arch.fc_dim) < keep_prob for _ in range(2)))
+    roi = (uni(n_images, pool), uni(n_images, pool))
+    if arch.roi_conv5:
+        return CfmDraws(roi, None)
+    return CfmDraws(roi, tuple(uni(n_images, r, arch.fc_dim) < keep_prob for _ in range(2)))
 
 
 @dataclasses.dataclass

@@ -179,10 +179,17 @@ def test_synthetic_imdb_matches_jax():
 
 
 def test_get_imdb_knows_synthetic_only():
+    """The synthetic names, and since the real-format readers were ported the
+    VOC, SBD and COCO names too (``tests/test_torch_real_data.py`` holds
+    their records against the JAX readers)."""
+    from mnc_tpu_torch.data.coco import COCOSeg
+    from mnc_tpu_torch.data.pascal_voc import PascalVOCDet, PascalVOCSeg
+
     assert get_imdb("synthetic_8").num_images == 8 and get_imdb("synthetic").num_images == 64
-    for name in ("voc_2012_train", "voc_2012_seg_val", "coco_2014_minival"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_imdb(name)
+    for name, kind in (("voc_2012_train", PascalVOCDet), ("voc_2012_seg_val", PascalVOCSeg),
+                       ("coco_2014_minival", COCOSeg)):
+        imdb = get_imdb(name)
+        assert isinstance(imdb, kind) and imdb.name == name
     with pytest.raises(KeyError):
         get_imdb("imagenet")
 
@@ -325,8 +332,10 @@ def test_test_net_reads_its_cache_and_refuses_real_imdbs(test_net_runs, tmp_path
     out = buf.getvalue()
     assert f"loaded {len(runs[1][0])} cached detections" in out
     assert "AP^r@[.5:.95] = " in out and jtext.splitlines()[-1] in out
-    with _port_cfg_restored(), pytest.raises(NotImplementedError, match="not ported"):
-        test_net.main(["--imdb", "voc_2012_val", "--device", "cpu"])
+    # a real imdb is read from its files: missing ones are an error that names them
+    with _port_cfg_restored(), pytest.raises(FileNotFoundError, match="voc_2012_val|val.txt"):
+        test_net.main(["--imdb", "voc_2012_val", "--device", "cpu", "--set", "DATA_DIR",
+                       str(tmp_path / "no_data")])
 
 
 def test_demo_synthetic_writes_overlays(tmp_path):

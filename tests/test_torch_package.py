@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_mnc_tpu():
             "mnc_tpu_torch.data.synth_imdb", "mnc_tpu_torch.tools.test_net",
             "mnc_tpu_torch.tools.demo", "mnc_tpu_torch.tools.fabricate_caffemodel",
             "mnc_tpu_torch.utils.vis", "mnc_tpu_torch.models.cfm", "mnc_tpu_torch.data.loader",
-            "mnc_tpu_torch.tools.prepare_mcg_maskdb"} <= set(mods)
+            "mnc_tpu_torch.tools.prepare_mcg_maskdb", "mnc_tpu_torch.data.coco",
+            "mnc_tpu_torch.data.pascal_voc", "mnc_tpu_torch.utils.png",
+            "mnc_tpu_torch.tools.make_coco_synth"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
