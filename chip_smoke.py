@@ -25,10 +25,12 @@ Phases, each printing its lines before the two JSON lines at the end:
    the conv5 head's 14 -> 7; a small f32 shape with an odd Cout and a dense
    K of 300; the ResNet stage-4 1x1 convolutions), on random and on
    all-+-127 operands, bit for bit, and kernel F (the int8 activation
-   quantization) at the input of every int8 layer of both trunks against
+   quantization: its bf16 division first proved by exhaustion on 2.13e9
+   pairs) at the input of every int8 layer of both trunks against
    ``quant_act`` in bf16 and f32, on random, edge-case and all-zero data,
-   then timed (CUDA events, after warm-up) beside the plain version and,
-   where one PyTorch call computes the same function, that call.  NMS, the
+   with one CUDA launch a call, then timed (CUDA events, after warm-up)
+   beside the plain version and, where one PyTorch call computes the same
+   function, that call.  NMS, the
    paste (N = 400, the serving request, and N = 100), block 1 (B = 2 and
    B = 4) and E are timed and bounded per shape.
 4. main paths, each with the launch counters zeroed just before and read
@@ -107,7 +109,10 @@ Phases, each printing its lines before the two JSON lines at the end:
       must differ); ``tools.int8_audit`` on 4 synthetic 640x1024 images;
       then the ResNet-101 COCO configuration under ``TEST.INT8``, one
       request with the conv5 head and one with the fc head (checked as in
-      a.), each against its bf16 cascade; then small f32 int8 models
+      a.; kernel F launched once less than E for each bottleneck whose
+      conv1 and proj share a quantized input), each against its bf16
+      cascade (6 requests each, interleaved; the outputs and detections
+      bit for bit those of conv1 and proj quantizing on their own); then small f32 int8 models
       (VGG-16, ResNet-50 with the conv5 head) card against CPU;
    j. real-format datasets: an SBD tree (8 images at VOC photo sizes, both
       orientations; ``GTinst`` / ``GTcls`` structs written by
@@ -881,6 +886,22 @@ def check_gemm_s8(g):
                 bound_by=main["bound_by"], library_ms=main["library_ms"], shapes=shapes)
 
 
+# (input shape, per_row) of every int8 layer of one request of 4 canvases (304 RoIs each)
+# on phase 4a's VGG-16 and the ResNet-101 COCO configuration with either head;
+# int8_layer_inputs finds them on the card and checks them against this list
+INT8_LAYER_INPUTS = (
+    ((4, 640, 1024, 3), False), ((4, 640, 1024, 64), False), ((4, 320, 512, 64), False),
+    ((4, 320, 512, 128), False), ((4, 160, 256, 128), False), ((4, 160, 256, 256), False),
+    ((4, 80, 128, 256), False), ((4, 80, 128, 512), False), ((4, 40, 64, 512), False),
+    ((1216, 100352), True), ((1216, 25088), True), ((1216, 4096), True),  # VGG-16
+    ((4, 160, 256, 64), False), ((4, 80, 128, 128), False), ((4, 40, 64, 256), False),
+    ((4, 40, 64, 1024), False),  # ResNet-101 trunk (the stem's input is conv1_1's)
+    ((1216, 14, 14, 1024), False), ((1216, 7, 7, 512), False), ((1216, 7, 7, 2048), False),
+    ((1216, 200704), True),  # the conv5 head and the ResNet mask head
+    ((1216, 50176), True),  # the fc head's fc6 (its fc7 input is VGG-16's)
+)
+
+
 def int8_layer_inputs() -> dict:
     """{(input shape, per_row): int8 layer name} over one request of 4
     canvases on phase 4a's VGG-16 and the ResNet-101 COCO configuration with
@@ -919,6 +940,8 @@ def int8_layer_inputs() -> dict:
             h.remove()
         del model
         torch.cuda.empty_cache()
+    if set(found) != set(INT8_LAYER_INPUTS):
+        raise AssertionError(f"int8 layer inputs {sorted(found)} are not INT8_LAYER_INPUTS")
     return found
 
 
@@ -945,18 +968,51 @@ def _quant_edges(x, per_row):
     return x
 
 
+def device_activities(calls) -> dict:
+    """{name: count} of the device's activities (kernels, memsets, copies)
+    while ``calls`` run, one after another (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def check_quant_act(g):
-    """Kernel F against quant_act (the plain version, on the same card
-    tensors) at the input of every int8 layer of both trunks and both
-    ResNet heads (``int8_layer_inputs``), in bf16 and f32, on random
-    activations, on edge cases (``_quant_edges``) and on zeros: int8 values and
-    scales bit for bit.  Timed in bf16 beside the plain version; the bound
-    is the input read and the int8 output written once (per tensor F reads
-    the input twice); no PyTorch call computes the same function."""
+    """Kernel F.  First its bf16 division proved by exhaustion
+    (``kernels.quant_div_check_cuda``: every finite bf16 x against the scale
+    of every non-negative finite bf16 absmax, 2.13e9 pairs, the division-free
+    int8 against ``__fdiv_rn``'s).  Then F against quant_act (the plain
+    version, on the same card tensors) at the input of every int8 layer of
+    both trunks and both ResNet heads (``int8_layer_inputs``), in bf16 and
+    f32, on random activations, on edge cases (``_quant_edges``) and on
+    zeros: int8 values and scales bit for bit.  Timed in bf16 beside the
+    plain version; the bound is the input read and the int8 output written
+    once; where the plan (``kernels.plan_quant_act``) re-reads part of the
+    input, the floor with that part read again from HBM is given beside it.
+    The CUDA launches of one call at every shape (torch.profiler over one
+    bf16 call each: every device activity must be one of F's kernels, one a
+    call, no memset).  No PyTorch call computes the same function."""
     from mnc_tpu_torch import kernels
     from mnc_tpu_torch.ops.quant import quant_act
 
-    shapes = {}
+    t_check = t0 = time.perf_counter()
+    proof = kernels.quant_div_check_cuda()
+    torch.cuda.synchronize()
+    proof["seconds"] = time.perf_counter() - t0
+    log(f"kernel F bf16 division, proved by exhaustion: {proof['pairs']} pairs (every finite "
+        f"bf16 x against the scale of every non-negative finite bf16 absmax), "
+        f"{proof['mismatches']} int8 values differ from __fdiv_rn's (first: {proof['first']}); "
+        f"{proof['seconds']:.2f} s with the build")
+    if proof["mismatches"] or proof["pairs"] != 65280 * 32640:
+        raise AssertionError(f"kernel F's division-free quotient is not __fdiv_rn's: {proof}")
+    dev = torch.device("cuda")
+    sms, smem = kernels._n_sms(dev), kernels._smem_per_block(dev)
+    shapes, timed = {}, {}
     for (shape, per_row), layer in sorted(int8_layer_inputs().items(),
                                           key=lambda kv: -int(np.prod(kv[0][0]))):
         label = f"{layer} {shape} per {'row' if per_row else 'tensor'}"
@@ -977,20 +1033,40 @@ def check_quant_act(g):
                 k_ms = cuda_ms(lambda: kernels.quant_act_cuda(xr, per_row), iters=10)
                 q, sc = kernels.quant_act_cuda(xr, per_row)
                 bms, by = bound_ms(nbytes(xr, q, sc), 0.0)
-                del xr, q, sc
+                plan = kernels.plan_quant_act(shape, per_row, dtype, sms, smem)
+                twice = plan.bytes_read_twice(xr.numel(), xr.element_size())
+                floor = bound_ms(nbytes(xr, q, sc) + twice, 0.0)[0]
+                timed[label] = (xr, per_row)
+                del q, sc
             del x, gq, gs, wq, ws
+        where = "on chip" if plan.on_chip else f"re-read {twice / 1e6:.1f} MB"
         log(f"kernel F quant_act {label}: bit-identical to quant_act (bf16 and f32, random, "
-            f"edge cases, zeros) {ok}; kernel_ms(bf16) {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms "
-            f"{bms:.4f} ({by}, {bms / k_ms:.0%} of it)")
+            f"edge cases, zeros) {ok}; plan {where}, grid {plan.grid} x {plan.threads}, smem "
+            f"{plan.smem} B; kernel_ms(bf16) {k_ms:.4f} plain_ms {p_ms:.4f} bound_ms {bms:.4f} "
+            f"({by}, {bms / k_ms:.0%} of it)"
+            + (f"; floor with the re-read from HBM {floor:.4f} ({floor / k_ms:.0%})"
+               if twice else ""))
         shapes[label] = dict(shape=list(shape), per_row=per_row, ms=k_ms, plain_ms=p_ms,
-                             bound_ms=bms, bound_by=by, bit_identical=ok)
+                             bound_ms=bms, bound_by=by, on_chip=plan.on_chip,
+                             reread_mb=twice / 1e6, reread_floor_ms=floor, grid=plan.grid,
+                             smem=plan.smem, bit_identical=ok)
         if not ok:
             raise AssertionError(f"quant_act kernel differs from its plain version ({label})")
+    calls = [lambda x=x, r=r: kernels.quant_act_cuda(x, r) for x, r in timed.values()]
+    acts = device_activities(calls)
+    kinds = ("quant_tensor_kernel", "quant_rows_kernel")
+    log(f"kernel F: CUDA launches of {len(calls)} bf16 calls, one at each shape: {acts}")
+    if sum(acts.values()) != len(calls) or not all(any(k in a for k in kinds) for a in acts):
+        raise AssertionError(f"kernel F: not one launch a call: {acts} for {len(calls)} calls")
+    for r in shapes.values():
+        r["launches_per_call"] = 1
+    del timed, calls
     torch.cuda.empty_cache()
+    log(f"kernel F checked in {time.perf_counter() - t_check:.1f} s")
     main = next(r for label, r in shapes.items() if r["shape"] == [4, *CANVAS, 64])
     return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
-                shapes=shapes)
+                division_proof=proof, shapes=shapes)
 
 
 def _check_serving(out, arch, b, k):
@@ -2308,7 +2384,7 @@ def test_net_segdb_agrees(tmp):
 N_INT8_REQUESTS = 10  # request pairs timed, int8 and bf16 interleaved
 # the int8 / bf16 request-time ratio predicted in PERF.md before the run that tests it;
 # printed beside the measured ratio, not gated
-INT8_RATIO_PREDICTED = (0.96, 1.01)
+INT8_RATIO_PREDICTED = (0.88, 0.94)
 
 
 def _tracks(name, got, want):
@@ -2457,6 +2533,70 @@ def int8_serve_path(device_label, arch):
     return counts
 
 
+@contextlib.contextmanager
+def quantize_twice():
+    """ResNet bottlenecks whose conv1 and proj quantize their shared input
+    each on its own, as before they shared one quantization: with no
+    quantized input to hand over, each ConvInt8 quantizes its own."""
+    from mnc_tpu_torch.ops.quant import ConvInt8
+
+    saved = ConvInt8.quantize
+    ConvInt8.quantize = lambda self, x: None
+    try:
+        yield
+    finally:
+        ConvInt8.quantize = saved
+
+
+def shared_quantization_agrees(name, model, canv, infos, nets):
+    """An int8 ResNet's cascade outputs (``nets``, from ``apply_batch``) and
+    its detections with one quantization for a bottleneck's conv1 and proj,
+    against the same with each quantizing on its own: bit for bit."""
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
+
+    pipe = MNCPipeline(model, PostCfg.from_cfg(dets_per_class=16))
+    with torch.inference_mode():
+        dets = pipe.detect_canvas_batch(canv, infos)
+        with quantize_twice():
+            twice = model.apply_batch(canv, infos)
+            dets_twice = pipe.detect_canvas_batch(canv, infos)
+    same = all(torch.equal(nets[k], twice[k]) for k in nets) and \
+        all(torch.equal(dets[k], dets_twice[k]) for k in dets)
+    log(f"int8 ResNet-101 COCO ({name}): the cascade's outputs and detections with one "
+        f"quantization shared by each first block's conv1 and proj, against each quantizing "
+        f"on its own: bit-identical {same}")
+    if not same:
+        raise AssertionError(f"ResNet-101 int8 ({name}): the shared quantization changed "
+                             f"the outputs")
+
+
+N_RESNET_INT8_REQUESTS = 6  # ResNet-101 request pairs timed, int8 and bf16 interleaved
+
+
+def int8_against_bf16(name, device_label, models, canv, infos, n):
+    """``n`` requests of the int8 model (``models[True]``) and the bf16 one
+    on the same canvases, interleaved after a warm-up: median and worst ms
+    each and their ratio (host clock, each ending in a synchronize)."""
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
+
+    pipes = {q: MNCPipeline(m, PostCfg.from_cfg(dets_per_class=16)) for q, m in models.items()}
+    for pipe in pipes.values():
+        pipe.detect_canvas_batch(canv, infos)
+    lat = {q: [] for q in pipes}
+    for _ in range(n):
+        for q, pipe in pipes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.detect_canvas_batch(canv, infos)
+            torch.cuda.synchronize()
+            lat[q].append((time.perf_counter() - t0) * 1e3)
+    med = {q: float(np.median(v)) for q, v in lat.items()}
+    log(f"serve {name} on {device_label}: int8 median {med[True]:.2f} ms (worst "
+        f"{max(lat[True]):.2f}), bf16 median {med[False]:.2f} ms (worst {max(lat[False]):.2f}) "
+        f"over {n} interleaved requests of {canv.shape[0]} canvases; int8 / bf16 = "
+        f"{med[True] / med[False]:.3f}")
+
+
 def int8_resnet_paths(device_label):
     """Phase 4i on the ResNet-101 COCO configuration, conv5 and fc heads,
     with ``TEST.INT8``: one request each through ``serve_path`` (phase 4d's
@@ -2470,22 +2610,32 @@ def int8_resnet_paths(device_label):
             C.cfg_from_list(["TEST.INT8", "True"])
             arch = MNCArch.from_cfg()
             assert arch.int8_inference and arch.trunk == "resnet101", arch
-            by_path[f"serve_int8_{name}"] = serve_path(
+            by_path[f"serve_int8_{name}"] = c = serve_path(
                 device_label, f"ResNet-101 COCO int8 ({name})", arch, 1)
+            # the first block of stages 2-4, and of stage 5 in each of the two head passes,
+            # quantizes its input once for conv1 and proj
+            shared = 3 + (2 if roi_conv5 else 0)
+            log(f"ResNet-101 COCO int8 ({name}): kernel F {c['quant_act_cuda']} launches a "
+                f"request, E {c['gemm_s8_cuda']} ({shared} inputs shared by two int8 layers)")
+            if c["quant_act_cuda"] != c["gemm_s8_cuda"] - shared:
+                raise AssertionError(f"ResNet-101 int8 ({name}): F launched "
+                                     f"{c['quant_act_cuda']} times for E's {c['gemm_s8_cuda']}")
             g = torch.Generator(device="cuda").manual_seed(5)
             canv = torch.randint(0, 256, (4, *arch.canvas, 3), generator=g, device="cuda",
                                  dtype=torch.uint8)
             infos = torch.tensor([[float(arch.canvas[0]), float(arch.canvas[1]), 1.0]] * 4,
                                  device="cuda")
-            nets = {}
-            for q in (False, True):  # random FrozenBN leaves: at init each block is its shortcut
-                model = randomize_frozen_bn(MNC(dataclasses.replace(arch, int8_inference=q),
-                                                device="cuda", seed=0), 4)
-                with torch.inference_mode():
-                    nets[q] = model.apply_batch(canv, infos)
-                del model
+            # random FrozenBN leaves: at init each block is its shortcut
+            models = {q: randomize_frozen_bn(MNC(dataclasses.replace(arch, int8_inference=q),
+                                                 device="cuda", seed=0), 4)
+                      for q in (False, True)}
+            int8_against_bf16(f"ResNet-101 COCO ({name})", device_label, models, canv, infos,
+                              N_RESNET_INT8_REQUESTS)
+            with torch.inference_mode():
+                nets = {q: m.apply_batch(canv, infos) for q, m in models.items()}
+            shared_quantization_agrees(name, models[True], canv, infos, nets[True])
             _tracks(f"ResNet-101 COCO ({name})", nets[True], nets[False])
-            del nets
+            del nets, models
         torch.cuda.empty_cache()
     return by_path
 
@@ -2928,12 +3078,14 @@ def main_paths(g, smi) -> dict:
         torch.cuda.empty_cache()
 
         # phase 4i: int8 serving
+        t0 = time.perf_counter()
         by_path["serve_int8"] = int8_serve_path(label, vgg)
         torch.cuda.empty_cache()
         by_path.update(int8_resnet_paths(label))
         for arch_kw in (None, RESNET_SMALL):
             small_int8_model_agrees(arch_kw)
         torch.cuda.empty_cache()
+        log(f"phase 4i on {label}: {time.perf_counter() - t0:.1f} s in all")
 
         # phase 4j: real-format datasets, with phase 4f's caffemodel as --weights
         t0 = time.perf_counter()

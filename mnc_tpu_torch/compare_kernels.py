@@ -1,7 +1,7 @@
 """Time the redesigned kernels — B (NMS), A′ (RoI-warp backward), C (paste +
-binarize), D (fused VGG block 1), E (the int8 GEMM) — against earlier or
-differently tuned builds of themselves, and F (the int8 activation
-quantization) against plain ``quant_act``, on one GPU, inside one process.
+binarize), D (fused VGG block 1), E (the int8 GEMM), F (the int8 activation
+quantization) — against earlier or differently tuned builds of themselves
+(F also against plain ``quant_act``), on one GPU, inside one process.
 
     python3 -m mnc_tpu_torch.compare_kernels [--parent-csrc DIR] [--only paste,block1]
         [--nms-variant=-DMNC_NMS_CLUSTER=8] [--bwd-variant=-DMNC_RWB_THREADS=1024]
@@ -16,17 +16,20 @@ build is timed in one call, in the order given and then in reverse (parent,
 change, ..., change, parent), each after its outputs were held against the
 plain PyTorch version (C: binarization equal except within 1e-5 of the
 threshold; D: ``block1_tolerance`` with >= 0.999 bit-identical; E and F:
-bit for bit; E at every shape of ``chip_smoke.GEMM_S8_SHAPES``, F at the
-inputs of ``QUANT_ACT_TIMED``).
+bit for bit; E at every shape of ``chip_smoke.GEMM_S8_SHAPES``, F in bf16 at
+every int8 layer's input of both trunks, ``chip_smoke.int8_layer_inputs``).
 
 ``--parent-csrc DIR`` names a directory holding the parent commit's sources
 (``git show <commit>:mnc_tpu_torch/csrc/paste.cu > DIR/paste.cu``); each of
-``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu``, ``block1.cu`` and ``gemm_s8.cu`` found there is
-built and timed.  ``nms.cu`` and ``roi_warp_bwd.cu`` must have today's C
-interfaces; ``paste.cu`` and ``block1.cu`` the first port's (no extent
-scratch; HWIO weights), ``gemm_s8.cu`` its first version's (``2cac255``:
-unpacked weights, no plan), and are driven exactly as their wrappers drove
-them (D's weights permuted and cast on every call).  Each ``--*-variant``
+``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu``, ``block1.cu``, ``gemm_s8.cu`` and
+``quant_act.cu`` found there is built and timed.  ``nms.cu`` and
+``roi_warp_bwd.cu`` must have today's C interfaces; ``paste.cu`` and
+``block1.cu`` the first port's (no extent scratch; HWIO weights),
+``gemm_s8.cu`` its first version's (``2cac255``: unpacked weights, no plan),
+``quant_act.cu`` its first version's (``c02edfa``: two launches a tensor, a
+partial buffer), and are driven exactly as their wrappers drove them (D's
+weights permuted and cast on every call; F's partial buffer allocated on
+every call).  Each ``--*-variant``
 (repeatable) builds the current source with extra ``nvcc`` flags (the macros
 at the head of each source), which is how cluster sizes, block sizes, bands
 and grids are settled; ``--*-source`` times another source file that has
@@ -46,11 +49,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from mnc_tpu_torch.kernels import _build
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 PARENT_ABI = {  # the C interfaces of the parent commit's sources
     "nms": _build.KERNEL_ABI["nms"],
     "roi_warp_bwd": _build.KERNEL_ABI["roi_warp_bwd"],
@@ -59,13 +63,11 @@ PARENT_ABI = {  # the C interfaces of the parent commit's sources
     "block1": _build.KERNEL_ABI["block1"],
     # E's first version (mma.sync, 2cac255): unpacked weights, a 16-byte-loader flag
     "gemm_s8": ("gemm_s8.cu", "mnc_gemm_s8", [_P, _P, _P, _I, _P, _P, _P] + [_I] * 14 + [_P]),
+    # F's first version (c02edfa): two launches a tensor, a partial buffer, the SM count
+    "quant_act": ("quant_act.cu", "mnc_quant_act", [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
 }
+QUANT_ACT_PARTIALS = 2048  # the first version's partial maxima (its kMaxPartials)
 KINDS = ("nms", "roi_warp_bwd", "paste", "block1", "gemm_s8", "quant_act")
-# kernel F against plain quant_act: label -> (input shape, per_row)
-QUANT_ACT_TIMED = {"conv1_2's input": ((4, 640, 1024, 64), False),
-                   "conv4_2's input": ((4, 80, 128, 512), False),
-                   "fc_mask's input": ((1216, 100352), True),
-                   "fc7's input": ((1216, 4096), True)}
 
 
 def load(source: Path, abi, flags=()):
@@ -265,6 +267,37 @@ def gemm_s8_callers(args):
     return callers
 
 
+def quant_act_callers(args):
+    """{label: f(x, per_row) -> (q, scale)}: plain ``quant_act``; the first
+    version as its wrapper drove it (a partial buffer allocated per call);
+    today's source through ``kernels._quant_act`` (the plan, the scratch)."""
+    from mnc_tpu_torch.kernels import _n_sms, _quant_act
+    from mnc_tpu_torch.ops.quant import quant_act
+
+    def make_parent(fn):
+        def call(x, per_row):
+            k = x.shape[-1] if per_row else x.numel()
+            q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+            scale = torch.empty((*x.shape[:-1], 1) if per_row else (), dtype=torch.float32,
+                                device=x.device)
+            partial = None if per_row else torch.empty(QUANT_ACT_PARTIALS, dtype=torch.float32,
+                                                       device=x.device)
+            _ok(fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                   None if partial is None else partial.data_ptr(), x.numel() // k, k,
+                   int(per_row), int(x.dtype == torch.bfloat16), _n_sms(x.device), _stream()),
+                "quant_act")
+            return q, scale
+        return call
+
+    callers = {"plain quant_act": quant_act}
+    parent = _parent(args, "quant_act")
+    if parent:
+        callers["parent (two launches)"] = make_parent(load(parent, PARENT_ABI["quant_act"]))
+    fn = load(_build.CSRC / "quant_act.cu", _build.KERNEL_ABI["quant_act"])
+    callers["one launch, on chip"] = lambda x, per_row: _quant_act(fn, x, per_row)
+    return callers
+
+
 def there_and_back(callers, run):
     """{label: [ms in the order given, ms in the reverse order]}."""
     labels = list(callers)
@@ -451,23 +484,28 @@ def main(argv=None) -> int:
 
     if "quant_act" in only:
         report["quant_act"] = {}
-        from mnc_tpu_torch.kernels import quant_act_cuda
+        callers = quant_act_callers(args)
         from mnc_tpu_torch.ops.quant import quant_act
-        callers = {"plain quant_act": quant_act, "kernel F": quant_act_cuda}
-        for shape, (xshape, per_row) in QUANT_ACT_TIMED.items():
+        for (xshape, per_row), layer in sorted(cs.int8_layer_inputs().items(),
+                                               key=lambda kv: -int(np.prod(kv[0][0]))):
+            shape = f"{layer} {xshape} per {'row' if per_row else 'tensor'}"
             x = (torch.randn(xshape, generator=g, device="cuda") * 3).to(torch.bfloat16)
-            (gq, gs), (wq, ws) = quant_act_cuda(x, per_row), quant_act(x, per_row)
-            if not (torch.equal(gq, wq) and torch.equal(gs, ws)):
-                wrong.append(f"quant_act ({shape}): kernel F differs from quant_act")
-                cs.log(wrong[-1])
-            del gq, gs, wq, ws
+            wq, ws = quant_act(x, per_row)
+            for label, fn in callers.items():
+                gq, gs = fn(x, per_row)
+                if not (torch.equal(gq, wq) and torch.equal(gs, ws)):
+                    wrong.append(f"quant_act [{label}] ({shape}): differs from quant_act")
+                    cs.log(wrong[-1])
+                del gq, gs
+            del wq, ws
             ms = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(x, per_row),
                                                                iters=10))
             for label in callers:
-                cs.log(f"quant_act {shape} {xshape} bf16 [{label}]: ms {ms[label]}")
+                cs.log(f"quant_act {shape} bf16 [{label}]: ms {ms[label]}")
             report["quant_act"][shape] = ms
             profiled("quant_act", shape, callers, lambda fn: fn(x, per_row))
             del x
+            torch.cuda.empty_cache()
 
     if args.out:
         out = Path(args.out)

@@ -445,15 +445,136 @@ def gemm_s8_cuda(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch
     return out
 
 
-QUANT_ACT_PARTIALS = 2048  # csrc/quant_act.cu kMaxPartials
+QUANT_ACT_TENSOR_THREADS = 1024  # csrc/quant_act.cu kTensorThreads: one block an SM
+QUANT_ACT_ROW_THREADS = 512  # kRowThreads: up to two blocks an SM
+QUANT_ACT_MAX_BLOCKS = 1024  # kMaxBlocks: partial maxima of a per-tensor grid
+QUANT_ACT_SCRATCH_WORDS = 64 + QUANT_ACT_MAX_BLOCKS  # kSyncWords + kMaxBlocks
+QUANT_ACT_SMEM_RESERVE = 1024  # bytes a block keeps beside what it holds (static shared memory)
+QUANT_ACT_MIN_UNITS = 2  # per tensor: at least this many 16-byte units a thread
+H100_SMEM_PER_BLOCK = 232448  # the largest dynamic shared memory a block may opt into
 
 
-def quant_act_cuda(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Activations (bf16 or f32, contiguous) → (int8 of x's shape, f32
-    scale): one scale (shape ``()``) over the tensor, or one per row of the
-    last axis (shape ``(..., 1)``), bit for bit ``ops.quant.quant_act``.
-    Per tensor two launches (absmax partials, then the scale and the
-    quantization on the device), per row one."""
+@dataclasses.dataclass(frozen=True)
+class QuantPlan:
+    """How kernel F covers one call: ``grid`` blocks of ``threads``, each
+    with ``smem`` bytes of dynamic shared memory; units of ``unit`` elements
+    (16 bytes where ``vec``, else one element).  Per tensor: a block takes
+    ``chunk`` units and holds the last ``held`` of them on chip across the
+    grid barrier.  Per row: ``rows_per_block`` rows at a time, each of
+    ``chunk`` units taken by ``threads_per_row`` threads, the last ``held``
+    of them held on chip.
+    ``on_chip``: the input is read from HBM once."""
+    per_row: bool
+    vec: bool
+    unit: int
+    on_chip: bool
+    grid: int
+    threads: int
+    smem: int
+    chunk: int
+    held: int
+    rows_per_block: int
+    threads_per_row: int
+
+    def bytes_read_twice(self, n: int, itemsize: int) -> int:
+        """The input bytes a call reads a second time (from L2 or HBM)."""
+        if self.on_chip:
+            return 0
+        if self.per_row:
+            return n // (self.chunk * self.unit) * (self.chunk - self.held) * self.unit * itemsize
+        units = n // self.unit
+        held = sum(min(self.held, max(0, min(self.chunk, units - b * self.chunk)))
+                   for b in range(self.grid))
+        return (n - held * self.unit) * itemsize
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_quant_act(shape, per_row: bool, dtype: torch.dtype = torch.bfloat16, sms: int = 132,
+                   smem: int = H100_SMEM_PER_BLOCK, aligned: bool = True) -> QuantPlan:
+    """Kernel F's plan for an input of ``shape`` and ``dtype`` (bf16 or f32)
+    on a card of ``sms`` SMs whose blocks may opt into ``smem`` bytes of
+    dynamic shared memory (an SM holds ``smem`` + 1 KB).  ``aligned``: the
+    input starts on a 16-byte boundary (16-byte units; per row also rows of
+    whole units), else one element a unit.
+
+    Per tensor: one cooperative block of 1024 threads an SM at most (the
+    grid is co-resident), at least two units a thread; the blocks split the
+    units evenly, and each holds as much of its share as its shared memory
+    takes: the whole share (``on_chip``) or its tail, the rest read again.
+    Per row: blocks of 512 threads, a row to 32-512 of them (about eight
+    units a thread), as many rows a block as its shared memory holds, fewer
+    where that leaves SMs idle (while a row's threads have a unit each); of
+    a row longer than a block's shared memory the tail is held and the rest
+    read again."""
+    itemsize = dtype.itemsize
+    n = int(torch.Size(shape).numel())
+    if n < 1 or len(shape) < 1:
+        raise ValueError(f"shape {tuple(shape)}: nothing to quantize")
+    cap = (smem - QUANT_ACT_SMEM_RESERVE) // 16 * 16
+    if not per_row:
+        unit = 16 // itemsize if aligned else 1
+        unit_bytes = unit * itemsize
+        units = n // unit
+        threads = QUANT_ACT_TENSOR_THREADS
+        grid = max(1, min(sms, QUANT_ACT_MAX_BLOCKS,
+                          -(-units // (threads * QUANT_ACT_MIN_UNITS))))
+        chunk = max(1, -(-units // grid))
+        grid = max(1, -(-units // chunk))  # no block without units
+        held = min(chunk, cap // unit_bytes)
+        return QuantPlan(per_row=False, vec=aligned, unit=unit, on_chip=held == chunk,
+                         grid=grid, threads=threads, smem=held * unit_bytes, chunk=chunk,
+                         held=held, rows_per_block=1, threads_per_row=threads)
+    k = int(shape[-1])
+    rows = n // k
+    vec = aligned and k * itemsize % 16 == 0
+    unit = 16 // itemsize if vec else 1
+    row_bytes = k * itemsize
+    ku = k // unit
+    threads = QUANT_ACT_ROW_THREADS
+    per = min(threads, max(32, 1 << max(0, (ku // 8).bit_length() - 1)))
+    groups = threads // per
+    while groups > 1 and groups * row_bytes > cap:
+        groups //= 2
+    held = min(ku, cap // (unit * itemsize))  # units of a row held: all, or its tail
+
+    def per_sm(g):
+        return 2 if 2 * (g * held * unit * itemsize + QUANT_ACT_SMEM_RESERVE) <= smem + 1024 \
+            else 1
+
+    most = max(32, 1 << max(0, ku - 1).bit_length())  # threads a row can use: one a unit
+    while groups > 1 and -(-rows // groups) < sms * per_sm(groups) and \
+            2 * threads // groups <= most:
+        groups //= 2
+    grid = min(sms * per_sm(groups), -(-rows // groups))
+    return QuantPlan(per_row=True, vec=vec, unit=unit, on_chip=held == ku, grid=grid,
+                     threads=threads, smem=groups * held * unit * itemsize, chunk=ku,
+                     held=held, rows_per_block=groups, threads_per_row=threads // groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_per_block(device: torch.device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    return optin if optin else props.shared_memory_per_multiprocessor - 1024
+
+
+_QUANT_SCRATCH: dict = {}
+
+
+def _quant_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """Kernel F's grid-barrier scratch, one per (device, stream), zeroed
+    once: the kernel leaves it as it found it."""
+    key = (device.index, stream)
+    buf = _QUANT_SCRATCH.get(key)
+    if buf is None:
+        buf = _QUANT_SCRATCH[key] = torch.zeros(QUANT_ACT_SCRATCH_WORDS, dtype=torch.int32,
+                                                device=device)
+    return buf
+
+
+def _quant_act(fn, x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Checks, plans and launches kernel F through the C function ``fn``
+    (or the kernel of that name)."""
     _check(x, "x", (torch.float32, torch.bfloat16), x.dim())
     if x.dim() < 1 or x.numel() == 0:
         raise ValueError(f"x has shape {tuple(x.shape)}: nothing to quantize")
@@ -461,13 +582,52 @@ def quant_act_cuda(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.
     k = x.shape[-1] if per_row else x.numel()
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
     scale = torch.empty((*x.shape[:-1], 1) if per_row else (), dtype=torch.float32, device=dev)
-    partial = None if per_row else torch.empty(QUANT_ACT_PARTIALS, dtype=torch.float32,
-                                               device=dev)
-    _launch("quant_act", dev, x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-            None if partial is None else partial.data_ptr(), x.numel() // k, k, int(per_row),
-            int(x.dtype == torch.bfloat16), _n_sms(dev), _stream(x))
-    quant_act_cuda.launches += 1
+    unit = 16 // x.element_size()
+    plan = plan_quant_act(tuple(x.shape), per_row, x.dtype, _n_sms(dev), _smem_per_block(dev),
+                          aligned=x.data_ptr() % 16 == 0 and q.data_ptr() % unit == 0)
+    stream = _stream(x)
+    sync = None if per_row else _quant_scratch(dev, stream)
+    if isinstance(fn, str):
+        fn = kernel_function(fn)
+    with _on(dev):
+        err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                 None if sync is None else sync.data_ptr(), x.numel() // k, k, int(per_row),
+                 int(x.dtype == torch.bfloat16), int(plan.vec), plan.chunk, plan.held,
+                 plan.threads_per_row, plan.grid, plan.smem, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel 'quant_act' failed to launch: CUDA error {err} "
+                           f"({plan})")
     return q, scale
+
+
+def quant_act_cuda(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Activations (bf16 or f32, contiguous) → (int8 of x's shape, f32
+    scale): one scale (shape ``()``) over the tensor, or one per row of the
+    last axis (shape ``(..., 1)``), bit for bit ``ops.quant.quant_act``.
+    One launch either way, planned by :func:`plan_quant_act`: per tensor a
+    cooperative grid that holds what fits of the input on chip across its
+    grid barrier (its scratch allocated once per device and stream), per row
+    blocks that hold their rows on chip."""
+    out = _quant_act("quant_act", x, per_row)
+    quant_act_cuda.launches += 1
+    return out
+
+
+def quant_div_check_cuda(device="cuda") -> dict:
+    """Kernel F's bf16 division proved by exhaustion on the card
+    (``mnc_quant_div_check``): every finite bf16 x against the scale of every
+    non-negative finite bf16 absmax, the division-free int8 against
+    ``__fdiv_rn``'s.  {"pairs", "mismatches", "first": (m bits, x bits) or
+    None}."""
+    dev = torch.device(device)
+    out = torch.tensor([0, 0, -1], dtype=torch.int64, device=dev)
+    with _on(dev):
+        err = kernel_function("quant_div_check")(out.data_ptr(), _stream(out))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel 'quant_div_check' failed to launch: CUDA error {err}")
+    bad, pairs, first = out.tolist()
+    return {"pairs": pairs, "mismatches": bad,
+            "first": None if first == -1 else (first >> 16, first & 0xffff)}
 
 
 KERNELS = (roi_warp_cuda, roi_warp_bwd_cuda, nms_keep_cuda, paste_binarize_cuda, block1_cuda,

@@ -38,7 +38,11 @@ KERNEL_ABI = {
     "gemm_s8": ("gemm_s8.cu", "mnc_gemm_s8",
                 [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 18 + [_P]),
     "quant_act": ("quant_act.cu", "mnc_quant_act",
-                  [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
+                  [_P, _P, _P, _P, _L, _L, _I, _I, _I, _L, _L, _I, _I, _I, _P]),
+}
+# further C entry points of a kernel's library: name -> (kernel, C function, argtypes)
+EXTRA_ABI = {
+    "quant_div_check": ("quant_act", "mnc_quant_div_check", [_P, _P]),
 }
 
 
@@ -94,9 +98,10 @@ def build(names=None) -> dict:
 
 @functools.cache
 def kernel_function(name: str):
-    """The C entry point of kernel ``name``, built and loaded on first use."""
-    path = build([name])[name]
-    _, fn_name, argtypes = KERNEL_ABI[name]
+    """The C entry point of kernel ``name`` (or of ``EXTRA_ABI``'s ``name``
+    in its kernel's library), built and loaded on first use."""
+    kernel, fn_name, argtypes = EXTRA_ABI.get(name) or (name, *KERNEL_ABI[name][1:])
+    path = build([kernel])[kernel]
     fn = getattr(ctypes.CDLL(str(path)), fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

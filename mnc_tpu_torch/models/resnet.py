@@ -20,6 +20,7 @@ dtype; it is not folded into the convolutions.  Under ``int8``
 3×3 convolutions at stride 1 and 2 and the projections, in the trunk and in
 the conv5 head — is a :class:`~mnc_tpu_torch.ops.quant.ConvInt8` with the
 same parameters; FrozenBN, the residual add and the ReLUs are unchanged.
+A block's ``conv1`` and ``proj`` share one quantization of its input.
 The head's convolutions take one activation scale over all the RoIs they
 are given (B·N in ``MNC.apply_batch``), as in the JAX package.
 """
@@ -87,11 +88,19 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        y = F.relu(self.bn1(conv_cast(self.conv1, x, cd)))
+        xq = None
+        if hasattr(self, "proj") and isinstance(self.conv1, ConvInt8) and \
+                isinstance(self.proj, ConvInt8):
+            x = x.to(cd)
+            xq = self.conv1.quantize(x)  # conv1 and proj take the same x: quantize it once
+        y = F.relu(self.bn1(self._conv(self.conv1, x, xq)))
         y = F.relu(self.bn2(conv_cast(self.conv2, y, cd)))
         y = self.bn3(conv_cast(self.conv3, y, cd))
-        residual = self.bn_proj(conv_cast(self.proj, x, cd)) if hasattr(self, "proj") else x
+        residual = self.bn_proj(self._conv(self.proj, x, xq)) if hasattr(self, "proj") else x
         return F.relu(y + residual)
+
+    def _conv(self, conv: nn.Conv2d, x: torch.Tensor, xq) -> torch.Tensor:
+        return conv_cast(conv, x, self.compute_dtype) if xq is None else conv(x, quantized=xq)
 
 
 def _stage(module: nn.Module, name: str, n_blocks: int, cin: int, features: int, stride: int,

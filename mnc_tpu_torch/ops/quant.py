@@ -30,7 +30,10 @@ implementation the plain version :func:`gemm_s8_plain`, whose float64
 convolution or matmul of the int8 values is exact (every partial sum is an
 integer below 2^53; the largest, 127² · 4608 ≈ 7.4·10⁷, is below 2^31 too).
 The activation quantization is the custom op ``mnc::quant_act``: on the card
-kernel F (``csrc/quant_act.cu``, bit-identical), on the CPU :func:`quant_act`.
+kernel F (``csrc/quant_act.cu``, bit-identical, one launch a call), on the CPU
+:func:`quant_act`.  Where two int8 convolutions take the same input (a
+ResNet bottleneck's ``conv1`` and ``proj``), it is quantized once
+(:meth:`ConvInt8.quantize`, :func:`conv_int8_quantized`).
 """
 
 from __future__ import annotations
@@ -193,7 +196,16 @@ def conv_int8(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     weight (square kernel, symmetric padding) → NHWC in ``x.dtype``: one
     activation scale over all of ``x``."""
     xq, xs = quant_act_op(x, False)
-    return gemm_s8_op(xq, xs, weight, bias, stride, padding, x.dtype)
+    return conv_int8_quantized(xq, xs, weight, bias, stride, padding, x.dtype)
+
+
+def conv_int8_quantized(xq: torch.Tensor, xs: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor | None, stride: int, padding: int,
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`conv_int8` on an input already quantized by ``mnc::quant_act``
+    (per tensor): NHWC int8 ``xq`` and its scale ``xs`` → NHWC in
+    ``out_dtype``.  Two convolutions of one input quantize it once."""
+    return gemm_s8_op(xq, xs, weight, bias, stride, padding, out_dtype)
 
 
 def dense_int8(x: torch.Tensor, weight: torch.Tensor,
@@ -209,9 +221,21 @@ class ConvInt8(nn.Conv2d):
     groups) on the int8 path.  Like the float layers of the trunks it takes
     and returns an NCHW view of channels-last data, in the compute dtype."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv_int8(x.permute(0, 2, 3, 1), self.weight, self.bias, self.stride[0],
-                      self.padding[0])
+    def quantize(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``mnc::quant_act`` of an NCHW view ``x``: (NHWC int8, f32 scale),
+        what :meth:`forward` takes as ``quantized``."""
+        return quant_act_op(x.permute(0, 2, 3, 1), False)
+
+    def forward(self, x: torch.Tensor, quantized: tuple | None = None) -> torch.Tensor:
+        """``quantized``: ``x`` as :meth:`quantize` gives it, where another
+        int8 layer on the same input has quantized it (a pre-hook still sees
+        ``x``); the output is the same."""
+        if quantized is None:
+            y = conv_int8(x.permute(0, 2, 3, 1), self.weight, self.bias, self.stride[0],
+                          self.padding[0])
+        else:
+            y = conv_int8_quantized(*quantized, self.weight, self.bias, self.stride[0],
+                                    self.padding[0], x.dtype)
         return y.permute(0, 3, 1, 2)
 
 

@@ -24,7 +24,9 @@ canvases:
 - under ``TEST.INT8`` (``--set TEST.INT8 True``), each int8 layer of the
   request on its own: the device time of its activation quantization
   (kernel F) and of its kernel E launch (with the packed weights the layer
-  caches), on the inputs the request gave it (CUDA events).
+  caches), on the inputs the request gave it (CUDA events); a layer whose
+  input another int8 layer quantized (a ResNet block's ``proj``) shows F as
+  shared and adds none to the total.
 
 It needs a GPU and exits with an error without one.
 """
@@ -95,12 +97,14 @@ def int8_layer_split(model, stages) -> None:
 
     seen: dict = {}
 
-    def keep_first(mod, args, name):
-        if name not in seen:
-            seen[name] = (mod, args[0].clone())
+    def keep_first(mod, args, kwargs, name):
+        if name not in seen:  # a layer handed its input quantized shares that F launch
+            shared = kwargs.get("quantized")
+            seen[name] = (mod, args[0].clone(), None if shared is None else shared[0])
 
-    hooks = [m.register_forward_pre_hook(lambda mod, args, name=name: keep_first(mod, args,
-                                                                                 name))
+    hooks = [m.register_forward_pre_hook(
+             lambda mod, args, kwargs, name=name: keep_first(mod, args, kwargs, name),
+             with_kwargs=True)
              for name, m in model.named_modules() if isinstance(m, QUANT_LAYERS)]
     try:
         for _, fn in stages:
@@ -109,8 +113,8 @@ def int8_layer_split(model, stages) -> None:
         for h in hooks:
             h.remove()
     torch.cuda.synchronize()
-    rows, tq, te = [], 0.0, 0.0
-    for name, (mod, x) in seen.items():
+    rows, tq, te, counted = [], 0.0, 0.0, set()
+    for name, (mod, x, shared) in seen.items():
         conv = isinstance(mod, ConvInt8)
         x = (x.permute(0, 2, 3, 1) if conv else x).contiguous()
         xq, xs = quant_act_cuda(x, per_row=not conv)
@@ -120,13 +124,17 @@ def int8_layer_split(model, stages) -> None:
         args = (mod.stride[0], mod.padding[0]) if conv else (1, 0)
         q_ms = _event_ms(lambda: quant_act_cuda(x, per_row=not conv))
         e_ms = _event_ms(lambda: gemm_s8_cuda(xq, wq, xs, ws, bias, *args, x.dtype, wp))
-        rows.append((name, tuple(x.shape), q_ms, e_ms))
-        tq, te = tq + q_ms, te + e_ms
+        again = shared is not None and id(shared) in counted  # kept alive in seen: ids unique
+        counted.add(id(shared))
+        rows.append((name, tuple(x.shape), q_ms, e_ms, again))
+        tq, te = tq + (0.0 if again else q_ms), te + e_ms
+    n_f = sum(not r[4] for r in rows)
     print(f"int8 layers of one pass (trunk once, heads once; the request runs the heads "
-          f"twice), device ms each, CUDA events: kernel F {tq:.3f} ms, kernel E "
-          f"{te:.3f} ms in all")
-    for name, shape, q_ms, e_ms in rows:
-        print(f"  {name:36s} {str(shape):24s} F {q_ms:8.3f}  E {e_ms:8.3f}")
+          f"twice), device ms each, CUDA events: kernel F {tq:.3f} ms ({n_f} launches), "
+          f"kernel E {te:.3f} ms ({len(rows)}) in all")
+    for name, shape, q_ms, e_ms, again in rows:
+        f = "  (shared)" if again else f"{q_ms:8.3f}"  # the input quantized for the layer before
+        print(f"  {name:36s} {str(shape):24s} F {f:>10s}  E {e_ms:8.3f}")
 
 
 @torch.inference_mode()

@@ -646,6 +646,32 @@ def test_quant_act_kernel_matches_plain(gen, case, dtype, per_row):
     assert torch.equal(got_q.cpu(), cpu_q) and torch.equal(got_s.cpu(), cpu_s)
 
 
+@pytest.mark.parametrize("shape,per_row", [((4, 40, 64, 1024), False), ((1216, 100352), True)])
+def test_quant_act_kernel_one_launch_and_exact_division(gen, shape, per_row):
+    """Kernel F's bf16 division proved by exhaustion on the card (every
+    finite bf16 x against the scale of every non-negative finite bf16
+    absmax), and at two int8 layer inputs (ResNet's stage-4 map, held on
+    chip; VGG's fc_mask rows) one CUDA launch a call, no memset
+    (torch.profiler), bit-identical to quant_act."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mnc_tpu_torch.ops.quant import quant_act
+
+    proof = kernels.quant_div_check_cuda()
+    assert (proof["mismatches"], proof["pairs"]) == (0, 65280 * 32640), proof
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    kernels.quant_act_cuda(x, per_row)  # the barrier's scratch is zeroed once, before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got_q, got_s = kernels.quant_act_cuda(x, per_row)
+        torch.cuda.synchronize()
+    acts = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    assert sum(acts.values()) == 1 and "quant_" in next(iter(acts)), acts
+    want_q, want_s = quant_act(x, per_row)
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+
+
 def test_int8_layers_run_kernels_e_and_f(gen):
     """ConvInt8 and DenseInt8 on the card launch F then E once each, and
     equal the CPU."""
