@@ -37,6 +37,8 @@ from mnc_tpu_torch.ops.quant import DenseInt8
 def linear_cast(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if isinstance(fc, DenseInt8):
         return fc(x.to(dtype))
+    if hasattr(fc, "forward_cast"):  # a tensor-parallel shard (parallel/tensor.py)
+        return fc.forward_cast(x, dtype)
     return F.linear(x, fc.weight.to(dtype), fc.bias.to(dtype))
 
 

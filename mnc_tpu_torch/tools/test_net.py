@@ -7,7 +7,8 @@ prints mAP^r @0.5/0.7 with the reference-style per-class AP table.
     python3 -m mnc_tpu_torch.tools.test_net --imdb synthetic_16 \\
         [--npz PATH | --ckpt DIR | --caffemodel PATH [--remap OLD=NEW ...]] [--stages 5] \\
         [--cfg FILE] [--set KEY VAL ...] [--conf 0.0] [--eval-batch N] \\
-        [--cache out.pkl] [--coco-ap] [--segdb DIR [--seg-top-k 300]] [--device cpu]
+        [--cache out.pkl] [--coco-ap] [--segdb DIR [--seg-top-k 300]] [--device cpu] \\
+        [--dp [--dist-init URL] [--dist-backend gloo]]
 
 ``--imdb`` is any name ``data.imdb.get_imdb`` resolves: ``synthetic[_<n>]``
 (whose images are canvases already; the architecture shrinks to them),
@@ -27,7 +28,18 @@ trunk and the classify head instead of running the RPN, one image at a time
 (``prep_im_for_blob``), its segments scaled alike, and the canvas masks
 cropped to the image's extent and resized back to it.  ``--coco-ap`` adds
 the COCO-style AP^r@[.5:.95].  It runs on the GPU unless ``--device cpu``
-is given, and raises without one.  The JAX tool's ``--dp`` is not ported.
+is given, and raises without one.
+
+``--dp`` shards each batch of ``--eval-batch`` canvases (a multiple of the
+world size) of a synthetic imdb over the processes of a
+``torch.distributed`` group (``parallel.data_parallel_eval_step``; the
+group as ``train_net --dp`` joins it, a one-rank group without a
+launcher), as the JAX tool's ``--dp`` does: each rank runs its images one
+at a time (so that under ``TEST.INT8`` each activation scale covers one
+image, as the JAX step's per-image runner does), rank 0 gathers the
+detections and evaluates.
+
+    torchrun --nproc-per-node N -m mnc_tpu_torch.tools.test_net --dp --eval-batch 8 ...
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ import argparse
 import os
 import os.path as osp
 import pickle
+
+from mnc_tpu_torch.tools.train_net import add_dp_args, dp_setup
 
 
 def parse_args(argv=None):
@@ -63,6 +77,7 @@ def parse_args(argv=None):
     ap.add_argument("--seg-top-k", type=int, default=300,
                     help="--segdb: segment proposals per image (padded)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    add_dp_args(ap)
     return ap.parse_args(argv)
 
 
@@ -93,7 +108,30 @@ def build_pipeline(arch, device, caffemodel=None, npz=None, remap=None, post=Non
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    from mnc_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)  # raises without a GPU unless --device cpu
+    if not args.dp:
+        return _test(args, device, None)
+    if args.segdb or not args.imdb.startswith("synthetic"):
+        raise SystemExit("--dp shards the canvas batches of a synthetic imdb "
+                         "(not --segdb or a real imdb)")
+    mesh, device, own_group = dp_setup(args, device)
+    try:
+        if args.eval_batch % mesh.size():
+            raise SystemExit(f"--dp: --eval-batch {args.eval_batch} must be a multiple of "
+                             f"the {mesh.size()} ranks")
+        return _test(args, device, mesh)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _test(args, device, mesh) -> int:
     import numpy as np
+    import torch
 
     from mnc_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
     from mnc_tpu_torch.data.eval_sds import collect_detections, print_ap_table
@@ -105,10 +143,10 @@ def main(argv=None) -> int:
                                                   unpack_canvas_masks)
     from mnc_tpu_torch.utils.blob import prep_im_for_blob
     from mnc_tpu_torch.utils.checkpoint import checkpoint_npz
-    from mnc_tpu_torch.utils.device import resolve_device
     from mnc_tpu_torch.utils.timer import Timer
 
-    device = resolve_device(args.device)  # raises without a GPU unless --device cpu
+    lead = mesh is None or mesh.get_rank() == 0  # evaluates and prints
+    say = print if lead else (lambda *a, **k: None)
     if args.cfg:
         cfg_from_file(args.cfg)
     if args.set_cfgs:
@@ -134,12 +172,20 @@ def main(argv=None) -> int:
     timer = Timer()
     pending: list = []
 
+    if mesh is not None:
+        from mnc_tpu_torch.parallel import data_parallel_eval_step
+
+        run_batch = data_parallel_eval_step(pipe.detect_canvas_packed, mesh)
+        say(f"--dp: eval batches of {args.eval_batch} sharded over {mesh.size()} devices")
+    else:
+        run_batch = pipe.detect_canvas_batch_packed
+
     def flush_batch():
         # pad the tail batch to the batch size by repeating the last image
         entries = pending + [pending[-1]] * (args.eval_batch - len(pending))
         timer.tic()
-        outs = host(pipe.detect_canvas_batch_packed(np.stack([e[1] for e in entries]),
-                                                    np.stack([e[2] for e in entries])))
+        outs = host(run_batch(*(torch.as_tensor(np.stack([e[j] for e in entries]),
+                                                device=device) for j in (1, 2))))
         timer.toc()
         for k, (i, _, _) in enumerate(pending):
             out = unpack_canvas_masks({key: v[k] for key, v in outs.items()}, arch.canvas[1])
@@ -149,7 +195,7 @@ def main(argv=None) -> int:
     if args.cache and osp.exists(args.cache):
         with open(args.cache, "rb") as f:
             detections = pickle.load(f)  # a file this tool wrote
-        print(f"loaded {len(detections)} cached detections from {args.cache}")
+        say(f"loaded {len(detections)} cached detections from {args.cache}")
     else:
         for n, i in enumerate(imdb.image_index):
             if synthetic:
@@ -183,7 +229,7 @@ def main(argv=None) -> int:
                 timer.toc()
                 out["canvas_masks"] = out["full_masks"]
                 detections.extend(collect_detections(out, i, args.conf))
-            elif args.eval_batch > 1:
+            elif args.eval_batch > 1 or mesh is not None:
                 pending.append((i, canvas, info))
                 if len(pending) == args.eval_batch or n == imdb.num_images - 1:
                     flush_batch()
@@ -194,12 +240,14 @@ def main(argv=None) -> int:
                 timer.toc()
                 detections.extend(collect_detections(out, i, args.conf))
             if (n + 1) % 50 == 0:
-                print(f"im_detect: {n + 1}/{imdb.num_images} {timer.average_time:.3f}s/im")
-        if args.cache:
+                say(f"im_detect: {n + 1}/{imdb.num_images} {timer.average_time:.3f}s/im")
+        if args.cache and lead:
             os.makedirs(osp.dirname(args.cache) or ".", exist_ok=True)
             with open(args.cache, "wb") as f:
                 pickle.dump(detections, f)
 
+    if not lead:  # rank 0 evaluates the gathered detections
+        return 0
     threshs = (0.5, 0.7, "avg") if args.coco_ap else (0.5, 0.7)
     results = imdb.evaluate(detections, iou_threshs=threshs)
     for res in results.values():

@@ -5,7 +5,7 @@ reference ``tools/train_net.py`` and its SolverWrapper loop).
         [--cfg experiments/cfgs/x.yml] [--set KEY VAL ...] [--out DIR] \\
         [--weights vgg16.npz|mnc.caffemodel|resnet101.pth] \\
         [--ims-per-batch N] [--seed S] [--device cpu] \\
-        [--segdb DIR [--seg-top-k 64]]
+        [--segdb DIR [--seg-top-k 64]] [--dp [--dist-init URL] [--dist-backend gloo]]
 
 ``--imdb`` names an imdb with masks that ``data.imdb.get_imdb`` resolves:
 ``synthetic[_<n>]``, ``voc_2012_seg_<set>`` (SBD), ``coco_<split>`` (both
@@ -38,6 +38,21 @@ the classify head on the precomputed segment proposals of
 from ``data.loader.TrainLoader`` (the JAX package's shuffled,
 flip-augmented order from the seed); a resumed run advances it past the
 steps already taken, with the same effect.
+
+``--dp`` trains data-parallel over every process of the group
+(``parallel.data_parallel_train_step``), as the JAX tool's ``--dp`` does:
+
+    torchrun --nproc-per-node N -m mnc_tpu_torch.tools.train_net --dp ...
+
+Each rank builds the same global batch of ``--ims-per-batch`` images (a
+multiple of the world size; a smaller value is raised to it) and takes its
+share; the gradients are averaged over the ranks.  Rank 0 alone logs and
+snapshots; every rank restores.  The group comes from torchrun's
+environment or ``--dist-init`` (a ``file://`` or ``tcp://`` URL, with
+``RANK`` and ``WORLD_SIZE`` set); without either, ``--dp`` runs on one
+rank.  The backend follows the device (NCCL on the GPU, gloo on the CPU)
+unless ``--dist-backend`` names one (gloo lets several ranks share one
+GPU).  ``--segdb`` does not take ``--dp``.
 """
 
 from __future__ import annotations
@@ -69,7 +84,35 @@ def parse_args(argv=None):
                          "(mnc_tpu_torch.tools.prepare_mcg_maskdb)")
     ap.add_argument("--seg-top-k", type=int, default=64,
                     help="--segdb: segment proposals kept per image (padded)")
+    add_dp_args(ap)
     return ap.parse_args(argv)
+
+
+def add_dp_args(ap) -> None:
+    ap.add_argument("--dp", action="store_true",
+                    help="data parallel over the processes of a torch.distributed group")
+    ap.add_argument("--dist-init", default=None,
+                    help="--dp: the group's init URL (default: torchrun's MASTER_ADDR/PORT)")
+    ap.add_argument("--dist-backend", default=None,
+                    help="--dp: nccl or gloo (default: nccl on the GPU, gloo on the CPU)")
+
+
+def dp_setup(args, device):
+    """``--dp``: join (or set up) the group; returns (mesh, device of this
+    rank, whether this call created the group)."""
+    import torch
+    import torch.distributed as dist
+
+    from mnc_tpu_torch.parallel import init_distributed, make_mesh
+
+    own = not dist.is_initialized()
+    init_distributed(args.dist_init, device=device, backend=args.dist_backend)
+    if device.type == "cuda" and dist.is_initialized():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = make_mesh(device=device, backend=args.dist_backend)
+    return mesh, device, own
 
 
 def load_weights(model, path: str, arch) -> None:
@@ -105,20 +148,40 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
 
+    from mnc_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)  # raises without a GPU unless --device cpu
+    mesh, rank, world, own_group = None, 0, 1, False
+    if args.dp:
+        if args.segdb:
+            raise SystemExit("--segdb (CFM training) does not support --dp yet")
+        mesh, device, own_group = dp_setup(args, device)
+        rank, world = mesh.get_rank(), mesh.size()
+    try:
+        return _train(args, device, mesh, rank, world)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device, mesh, rank: int, world: int) -> int:
+    import torch
+
     from mnc_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
     from mnc_tpu_torch.data.imdb import get_imdb
     from mnc_tpu_torch.data.loader import TrainLoader
     from mnc_tpu_torch.data.synthetic import SyntheticShapes
     from mnc_tpu_torch.models.cfm import make_cfm_train_step
     from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.parallel import data_parallel_train_step, replicate, shard_batch
     from mnc_tpu_torch.train.loop import TrainState, make_train_step, train_cfg_from_cfg
     from mnc_tpu_torch.train.optim import make_optimizer
     from mnc_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_latest,
                                                 save_checkpoint)
-    from mnc_tpu_torch.utils.device import resolve_device
     from mnc_tpu_torch.utils.metrics import MetricsLogger
 
-    device = resolve_device(args.device)  # raises without a GPU unless --device cpu
+    lead = rank == 0  # logs and snapshots
+    say = print if lead else (lambda *a, **k: None)
     if args.cfg:
         cfg_from_file(args.cfg)
     if args.set_cfgs:
@@ -131,8 +194,8 @@ def main(argv=None) -> int:
             and not cfg.NET.RESNET_STRIDE_IN_3X3):
         # torchvision's ResNets are v1.5 (stride on the 3x3): v1 geometry
         # fits every shape but computes features the weights never saw
-        print("torchvision ResNet weights: enabling NET.RESNET_STRIDE_IN_3X3 "
-              "(v1.5 geometry the checkpoint was trained with)", flush=True)
+        say("torchvision ResNet weights: enabling NET.RESNET_STRIDE_IN_3X3 "
+            "(v1.5 geometry the checkpoint was trained with)", flush=True)
         cfg.NET.RESNET_STRIDE_IN_3X3 = True
     if synthetic:  # shrink the static shapes to the synthetic canvas
         n_images = int(args.imdb.split("_")[1]) if "_" in args.imdb else 64
@@ -145,7 +208,7 @@ def main(argv=None) -> int:
     model = MNC(arch, device=device, seed=seed, train=True)
     if args.weights:
         load_weights(model, args.weights, arch)
-        print(f"initialized from {args.weights}", flush=True)
+        say(f"initialized from {args.weights}", flush=True)
     opt = make_optimizer(
         model, base_lr=cfg.TRAIN.LEARNING_RATE, momentum=cfg.TRAIN.MOMENTUM,
         weight_decay=cfg.TRAIN.WEIGHT_DECAY, gamma=cfg.TRAIN.GAMMA,
@@ -155,15 +218,23 @@ def main(argv=None) -> int:
     out_dir = args.out or os.path.join("output", args.imdb)
     state, start = restore_latest(out_dir, TrainState.create(model, opt))
     if start:
-        print(f"resumed from iter {start}", flush=True)
+        say(f"resumed from iter {start}", flush=True)
 
     ims = args.ims_per_batch or cfg.TRAIN.IMS_PER_BATCH
     max_iters = args.iters or cfg.TRAIN.MAX_ITERS
-    if args.segdb:
+    if mesh is not None:
+        if ims % world and ims != 1:
+            raise SystemExit(f"--dp: --ims-per-batch {ims} must be a multiple of the "
+                             f"{world} ranks")
+        ims = max(ims, world)
+        replicate(model, mesh)
+        step_fn = data_parallel_train_step(model, opt, arch, train_cfg, mesh)
+        say(f"data parallel over {world} devices, batch {ims}", flush=True)
+    elif args.segdb:
         step_fn = make_cfm_train_step(model, opt, arch, dict(train_cfg,
                                                              CFM_IOU=cfg.TRAIN.CFM_IOU))
-        print(f"CFM training on segment proposals from {args.segdb} (top {args.seg_top_k} "
-              "per image; no RPN or mask-head losses)", flush=True)
+        say(f"CFM training on segment proposals from {args.segdb} (top {args.seg_top_k} "
+            "per image; no RPN or mask-head losses)", flush=True)
     else:
         step_fn = make_train_step(model, opt, arch, train_cfg)
     loader = None
@@ -175,10 +246,10 @@ def main(argv=None) -> int:
     else:
         order = torch.Generator()
     gen = torch.Generator(device=device)
-    print(f"training on {device} ({arch.n_stages}-stage, canvas {arch.canvas}, "
-          f"{arch.num_classes} classes, {ims} image(s) per step, {max_iters} iters)",
-          flush=True)
-    logger = MetricsLogger(os.path.join(out_dir, "train_metrics.jsonl"), args.print_every)
+    say(f"training on {device} ({arch.n_stages}-stage, canvas {arch.canvas}, "
+        f"{arch.num_classes} classes, {ims} image(s) per step, {max_iters} iters)", flush=True)
+    logger = MetricsLogger(os.path.join(out_dir, "train_metrics.jsonl") if lead else None,
+                           args.print_every)
     t0 = time.perf_counter()
     try:
         for it in range(start, max_iters):
@@ -189,12 +260,15 @@ def main(argv=None) -> int:
             else:
                 order.manual_seed(step_seed)
                 host = data.batch(torch.randint(0, n_images, (ims,), generator=order).tolist())
+            if mesh is not None:  # every rank made the same global batch
+                host = shard_batch(host, mesh)
             batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                      for k, v in host.items()}
             lr = opt.lr
             state, metrics = step_fn(state, batch, gen)
-            logger.log(it + 1, {k: float(v) for k, v in metrics.items()}, lr=lr)
-            if (it + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0 or it + 1 == max_iters:
+            if lead:
+                logger.log(it + 1, {k: float(v) for k, v in metrics.items()}, lr=lr)
+            if lead and ((it + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0 or it + 1 == max_iters):
                 print(f"snapshot → {save_checkpoint(out_dir, state, step=it + 1)}", flush=True)
     finally:
         if loader is not None:
@@ -203,8 +277,8 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize()
     n = max(max_iters - start, 1)
-    print(f"done: {max_iters} iters, avg {(time.perf_counter() - t0) / n:.3f} s/iter; "
-          f"state → {latest_checkpoint(out_dir)}")
+    say(f"done: {max_iters} iters, avg {(time.perf_counter() - t0) / n:.3f} s/iter; "
+        f"state → {latest_checkpoint(out_dir)}")
     return 0
 
 

@@ -60,9 +60,12 @@ class CaffeSGD:
         return self.schedule(self.count)
 
     @torch.no_grad()
-    def step(self) -> bool:
+    def step(self, grad_sq_norm=None) -> bool:
         """Consume the parameters' gradients; returns True when an update
-        was applied (always, unless ``iter_size`` > 1)."""
+        was applied (always, unless ``iter_size`` > 1).  ``grad_sq_norm``
+        maps the gradients (in ``self.params`` order) to the squared global
+        norm that clipping uses (default: their sum of squares; a
+        tensor-parallel step sums its shards over the model axis)."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         for p in self.params:
             p.grad = None
@@ -78,7 +81,8 @@ class CaffeSGD:
                 a.zero_()
             self.mini_step = 0
         if self.clip_gradients and self.clip_gradients > 0:
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            norm = torch.sqrt(grad_sq_norm(grads) if grad_sq_norm is not None
+                              else sum((g.float() ** 2).sum() for g in grads))
             # unchanged below the limit, else scaled onto it
             factor = torch.where(norm < self.clip_gradients, torch.ones_like(norm),
                                  self.clip_gradients / norm)

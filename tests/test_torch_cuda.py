@@ -689,3 +689,51 @@ def test_int8_layers_run_kernels_e_and_f(gen):
         assert (counts["gemm_s8_cuda"], counts["quant_act_cuda"]) == (2, 2)
         assert torch.equal(y.cpu(), conv.cpu()(x.cpu()))
         assert torch.equal(z.cpu(), dense.cpu()(v.cpu()))
+
+
+def test_dp_step_at_world_1_through_nccl_equals_the_plain_step(gen):
+    """``data_parallel_train_step`` on a one-rank NCCL group (what ``--dp``
+    sets up without a launcher) against ``make_train_step`` on a second model
+    of the same seed, 2 images of a small f32 cascade, the same draws: the
+    losses bit for bit (the forward is deterministic), every parameter
+    within 1e-1 of its step's update (kernel A′'s float atomics and cuDNN's
+    backward sum in a run-dependent order: ``chip_smoke.RESUME_STATE_BOUND``),
+    kernels A, A′ and B launched."""
+    import torch.distributed as dist
+
+    from mnc_tpu_torch.data.synthetic import SyntheticShapes
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.parallel import data_parallel_train_step, make_mesh
+    from mnc_tpu_torch.train.loop import TrainState, draw_step_randoms, make_train_step
+    from mnc_tpu_torch.train.optim import make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    arch = MNCArch(canvas=(128, 160), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
+                   warp_hw=4, fc_dim=64, mask_fc_dim=32, pre_nms_top_n=128, post_nms_top_n=32,
+                   rpn_min_size=4.0, compute_dtype=torch.float32)
+    cfg = dict(RPN_POSITIVE_OVERLAP=0.7, RPN_NEGATIVE_OVERLAP=0.3, RPN_BATCHSIZE=64,
+               RPN_FG_FRACTION=0.5, BATCH_SIZE=32, FG_FRACTION=0.25, FG_THRESH=0.5,
+               BG_THRESH_HI=0.5, BG_THRESH_LO=0.0)
+    data = SyntheticShapes(canvas_hw=arch.canvas, num_classes=4, max_gt=4, gt_mask_size=16,
+                           n_range=(1, 2), seed=7)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(range(2)).items()}
+    draws = draw_step_randoms(gen, arch, cfg, 2, 4)
+    models = [MNC(arch, device="cuda", seed=1, train=True) for _ in range(2)]
+    opts = [make_optimizer(m) for m in models]
+    mesh = make_mesh(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        kernels.reset_launch_counts()
+        _, got = data_parallel_train_step(models[0], opts[0], arch, cfg, mesh)(
+            TrainState.create(models[0], opts[0]), batch, draws)
+        counts = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    _, want = make_train_step(models[1], opts[1], arch, cfg)(
+        TrainState.create(models[1], opts[1]), batch, draws)
+    assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in want.items()}
+    assert min(counts[k] for k in ("roi_warp_cuda", "roi_warp_bwd_cuda", "nms_keep_cuda")) > 0
+    for (name, a), b, t in zip(models[0].named_parameters(), models[1].parameters(),
+                               opts[1].trace):
+        update = 0.001 * t.abs().max()
+        assert (a - b).abs().max() <= 1e-1 * update, name
