@@ -6,7 +6,8 @@
 Phases, each printing its lines before the two JSON lines at the end:
 
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build   — compiles every kernel from ``mnc_tpu_torch/csrc`` (nvcc, sm_90a).
+2. build   — compiles every kernel from ``mnc_tpu_torch/csrc`` (nvcc, sm_90a)
+   and, beside them, the host helpers ``csrc/native.cpp`` (g++).
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes of the serving and training paths of both trunks (the RoI
    warp and its backward on 512 and 1024 channels, NMS per class on 80 and
@@ -151,7 +152,30 @@ Phases, each printing its lines before the two JSON lines at the end:
       within the bound), the spatial trunk (2 x 320 rows of 640x1024, f32)
       against ``model.features`` (1e-4 of the max), and ``train_net --dp``
       and ``test_net --dp`` as 2 ranks (the detections equal world 1's).
-      ``--only parallel`` builds the kernels and runs this phase alone.
+      ``--only parallel`` builds the kernels and runs this phase alone;
+   l. the train -> detect -> mAP^r tools and the last ported modules:
+      ``tools.e2e_synth_demo --full-scale`` on VGG-16 (640x1024, FC 4096,
+      M 21, pre-/post-NMS 2048/512, bf16; 6 steps of 2 images, an
+      evaluation at step 3, ``--int8-eval``): every step's losses finite,
+      every kernel moved, one EVAL line and the final JSON line, kernels E
+      and F launched in the int8 evaluation only (paths ``e2e_train``,
+      ``e2e_eval``, ``e2e_int8_eval``; per-step and per-evaluation walls);
+      the ResNet-101 conv5 configuration, whose trunk is rematerialized
+      (2 steps, path ``e2e_remat``), then one step with and one without
+      ``remat_trunk`` from the same init and draws (losses bit for bit,
+      states within ``RESUME_STATE_BOUND`` of the update, the peak memory
+      of each, remat's lower); ``tools.ablation_study`` at full scale on the
+      trained npz (4 images over seeds 99 and 7, 50 bootstrap resamples,
+      COCO AP; paths ``ablation_<variant>``, ``5stage_int8`` with E and F),
+      and ``--only 3stage`` after it with the paired deltas; ``--smoke``
+      on the card against the CPU (records equal but ``ms_per_img``);
+      ``TEST.VOTE_IMPL gather`` against ``einsum`` on a.'s first request
+      (detections equal, merged masks within 1e-5, both routes timed);
+      ``roi_pool`` on a VGG conv5 map (4 x 40 x 64 x 512, 76 RoIs an
+      image, 7x7) and the whole-class ``mask_voting`` / ``box_voting`` on
+      one class's candidates, card against CPU; ``rle_encode`` of one
+      640x1024 mask, the compiled host helper against numpy.
+      ``--only tools`` builds the kernels and runs this phase alone.
 5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
    of phase 3, per shape where there are several; bounds from this run's
    inputs), then ``{"ok": true, ...}``.
@@ -1805,7 +1829,8 @@ def serving_entry_points(device_label, model, tmp):
         raise AssertionError(f"micro-batched server: batches {sizes}, instances {n_inst}")
     lat = sorted(r[2] * 1e3 for r in replies)
     log(f"serve_http micro-batched on {device_label}: 16 .npy requests from 8 clients in "
-        f"{wall * 1e3:.1f} ms: {16 / wall:.2f} requests/s; latency median "
+        f"{wall * 1e3:.1f} ms: {16 / wall:.2f} requests/s (RLE by the compiled host helper; "
+        f"with numpy's RLE this server answered 7.0-8.2 requests/s on one H100); latency median "
         f"{np.median(lat):.1f} ms, worst {lat[-1]:.1f} ms; batches formed {sizes}; instances "
         f"per reply {n_inst}; launches {by_path['serve_http']}")
     # the same work without HTTP, split: detect_many, then the replies' RLE and JSON
@@ -3449,6 +3474,347 @@ def parallel_paths(device_label, tmp):
     return by_path
 
 
+# --------------------------------------------------------------------------- #
+# phase 4l: the train -> detect -> mAP^r tools and the last ported modules
+# --------------------------------------------------------------------------- #
+
+E2E_VGG = ["--full-scale", "--iters", "6", "--batch", "2", "--train-images", "8",
+           "--eval-images", "4", "--eval-every", "3", "--int8-eval", "--device", "cuda"]
+E2E_REMAT = ["--full-scale", "--trunk", "resnet101", "--roi-conv5", "--iters", "2", "--batch",
+             "2", "--train-images", "4", "--eval-images", "2", "--device", "cuda"]
+ABLATION = ["--eval-images", "4", "--val-seeds", "99", "7", "--bootstrap", "50", "--coco-ap",
+            "--device", "cuda"]
+ABLATION_SMOKE = ["--smoke", "--val-seeds", "99", "7", "--bootstrap", "20", "--coco-ap"]
+EF = ("gemm_s8_cuda", "quant_act_cuda")
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    orig = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def counting(fn, sink: list, keep=None):
+    """``fn`` wrapped: each call appends (its launch counts, its seconds
+    between two synchronizes, ``keep(result)``) to ``sink``."""
+    from mnc_tpu_torch.kernels import launch_counts
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        before, t0 = launch_counts(), time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        sink.append(({k: after[k] - before[k] for k in after}, time.perf_counter() - t0,
+                     keep(out) if keep else None))
+        return out
+
+    return wrapper
+
+
+def _summed(calls) -> dict:
+    from mnc_tpu_torch.kernels import launch_counts
+
+    total = dict.fromkeys(launch_counts(), 0)
+    for counts, _, _ in calls:
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def _final_json(stdout) -> dict:
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def e2e_vgg_path(device_label, tmp):
+    """(i) ``e2e_synth_demo --full-scale`` on VGG-16 (640x1024, FC 4096, M 21,
+    pre-/post-NMS 2048/512, bf16): 6 steps of 2 images, one evaluation at
+    step 3, the final one, and the int8 evaluation of the same weights.
+    Every step's losses finite, every kernel moved, one EVAL line and the
+    final JSON line; kernels E and F launched in the int8 evaluation only.
+    Returns the launch counts by path and the trained npz."""
+    from mnc_tpu_torch.tools import e2e_synth_demo as E
+    from mnc_tpu_torch.train import loop
+
+    steps, evals, int8s, held = [], [], [], {}
+    build = loop.build_train_step
+
+    def build_counted(model, opt, arch, train_cfg):
+        held["model"] = model
+        held["before"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return counting(build(model, opt, arch, train_cfg), steps,
+                        lambda out: {k: float(v) for k, v in out[1].items()})
+
+    out_dir = os.path.join(tmp, "e2e_vgg16")
+    with patched(loop, "build_train_step", build_counted), \
+            patched(E, "evaluate", counting(E.evaluate, evals)), \
+            patched(E, "int8_evaluate", counting(E.int8_evaluate, int8s)):
+        stdout, sec, total = run_tool("e2e_synth_demo", E2E_VGG + ["--out", out_dir])
+    final = _final_json(stdout)
+    if set(final) != {"map_r_050", "map_r_070", "iters", "batch", "int8_map_r_050",
+                      "int8_map_r_070"} or (final["iters"], final["batch"]) != (6, 2):
+        raise AssertionError(f"e2e_synth_demo: final line {final}")
+    if stdout.count("\nEVAL ") != 1 or len(steps) != 6 or len(evals) != 3 or len(int8s) != 1:
+        raise AssertionError(f"e2e_synth_demo: {stdout.count('EVAL ')} EVAL lines, "
+                             f"{len(steps)} steps, {len(evals)} + {len(int8s)} evaluations")
+    for i, (_, _, m) in enumerate(steps):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"e2e_synth_demo step {i + 1}: a loss is not finite: {m}")
+    params = dict(held["model"].named_parameters())
+    still = sorted(n for n, p in params.items() if torch.equal(p, held["before"][n]))
+    if any(not n.endswith("bias") for n in still):
+        raise AssertionError(f"e2e_synth_demo: kernels unchanged after 6 steps: {still}")
+    del held
+    int8_counts = _summed(int8s)  # its evaluate call is among ``evals`` too
+    by_path = {"e2e_train": _summed(steps),
+               "e2e_eval": {k: v - int8_counts[k] for k, v in _summed(evals).items()},
+               "e2e_int8_eval": int8_counts}
+    for path in ("e2e_train", "e2e_eval"):
+        if any(by_path[path][k] for k in EF):
+            raise AssertionError(f"e2e_synth_demo: E or F launched on {path}: {by_path[path]}")
+    if not all(by_path["e2e_int8_eval"][k] for k in EF):
+        raise AssertionError(f"e2e_synth_demo: the int8 evaluation launched no E or F: "
+                             f"{by_path['e2e_int8_eval']}")
+    step_ms = [t * 1e3 for _, t, _ in steps]
+    log(f"e2e_synth_demo --full-scale VGG-16 on {device_label}: {sec:.1f} s in all; step "
+        f"walls (2 images) " + ", ".join(f"{x:.1f}" for x in step_ms) + " ms; evaluations of "
+        f"4 images " + ", ".join(f"{t:.2f}" for _, t, _ in evals[:2]) + f" s; int8 evaluation "
+        f"{int8s[0][1]:.2f} s (its model build included); losses step 1 / 6: total "
+        f"{steps[0][2]['total']:.4f} / {steps[-1][2]['total']:.4f}; {len(still)} biases "
+        f"unchanged (no gradient, no decay); final {final}; launches {by_path}")
+    return by_path, os.path.join(out_dir, "e2e_params.npz")
+
+
+def e2e_remat_path(device_label, tmp):
+    """(ii) ``e2e_synth_demo --full-scale --trunk resnet101 --roi-conv5``
+    (so ``remat_trunk`` is on), 2 steps; then one step of the same model
+    with and without remat from the same init and draws: step 1's losses
+    bit for bit, the states within ``RESUME_STATE_BOUND`` of the update
+    (kernel A′'s float atomics), the remat step's peak memory lower."""
+    from mnc_tpu_torch.data.synth_imdb import SyntheticIMDB
+    from mnc_tpu_torch.models.mnc import MNC
+    from mnc_tpu_torch.tools import e2e_synth_demo as E
+    from mnc_tpu_torch.train.loop import TrainState, build_train_step, draw_step_randoms
+    from mnc_tpu_torch.train.optim import make_optimizer
+
+    stdout, sec, counts = run_tool("e2e_synth_demo",
+                                   E2E_REMAT + ["--out", os.path.join(tmp, "e2e_r101")])
+    final = _final_json(stdout)
+    first = next(ln for ln in stdout.splitlines() if ln.startswith("iter 1: "))
+    if final["iters"] != 2 or "nan" in first or "inf" in first:
+        raise AssertionError(f"e2e_synth_demo ResNet-101: {first}; {final}")
+    log(f"e2e_synth_demo --full-scale --trunk resnet101 --roi-conv5 on {device_label}: "
+        f"{sec:.1f} s in all; {first}; final {final}; launches {counts}")
+
+    args = E.parse_args(E2E_REMAT)
+    arch, train_cfg, gt_mask_size, max_gt = E.build_arch(args)
+    if not arch.remat_trunk:
+        raise AssertionError("e2e_synth_demo: remat_trunk is off for ResNet-101")
+    data = SyntheticIMDB(canvas_hw=arch.canvas, num_classes=arch.num_classes, max_gt=max_gt,
+                         gt_mask_size=gt_mask_size, num_images=2, seed=1)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.gen.batch([0, 1]).items()}
+    draws = draw_step_randoms(torch.Generator(device="cuda").manual_seed(0), arch, train_cfg,
+                              2, max_gt)
+    res, init = {}, None
+    for remat in (True, False):
+        a = dataclasses.replace(arch, remat_trunk=remat)
+        model = MNC(a, device="cuda", seed=args.seed, train=True)
+        if init is None:
+            init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = make_optimizer(model, base_lr=args.lr, stepsize=1, clip_gradients=10.0)
+        state = TrainState.create(model, opt)
+        step = build_train_step(model, opt, a, train_cfg)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, metrics = step(state, batch, draws)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        after = {n: p.detach().clone() for n, p in model.named_parameters()}
+        walls = []
+        for _ in range(2):  # warm steps, timed (the first step grows the allocator)
+            t0 = time.perf_counter()
+            step(state, batch, draws)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        res[remat] = ({k: float(v) for k, v in metrics.items()}, after, walls, peak)
+        del model, opt, state, step, metrics, after
+        torch.cuda.empty_cache()
+    (lr_, sr, msr, pr), (lp, sp, msp, pp) = res[True], res[False]
+    if lr_ != lp:
+        raise AssertionError(f"remat step 1: losses differ from the plain step's: {lr_} vs {lp}")
+    worst = 0.0
+    for n, p0 in init.items():
+        upd = (sp[n] - p0).abs().max().item()
+        diff = (sr[n] - sp[n]).abs().max().item()
+        worst = max(worst, diff / upd if upd > 0 else (0.0 if diff == 0 else float("inf")))
+    if worst > RESUME_STATE_BOUND or not pr < pp:
+        raise AssertionError(f"remat step: state {worst:.3e} of the update from the plain "
+                             f"step's (bound {RESUME_STATE_BOUND}); peak {pr:.2f} GiB against "
+                             f"{pp:.2f} GiB")
+    log(f"remat_trunk on {device_label} (ResNet-101 conv5 head, 2 images, 640x1024): step 1 "
+        f"losses equal bit for bit to the plain step's (total {lr_['total']:.6f}); states "
+        f"within {worst:.3e} of each leaf's update (bound {RESUME_STATE_BOUND}); peak memory "
+        f"above the resident {pr:.2f} GiB with remat against {pp:.2f} GiB without; warm step "
+        f"walls {', '.join(f'{x:.1f}' for x in msr)} against "
+        f"{', '.join(f'{x:.1f}' for x in msp)} ms")
+    return {"e2e_remat": counts}
+
+
+def ablation_paths(device_label, tmp, npz):
+    """(iii) ``ablation_study`` at full scale on (i)'s weights: the 8 variant
+    records (4 images over 2 seeds, 50 bootstrap resamples, COCO AP), then a
+    second run of ``--only 3stage`` whose record carries the paired deltas
+    against ``5stage``; ``5stage_int8`` launches E and F.  (vii) The
+    ``--smoke`` configuration on the card and on the CPU: the same records
+    but ``ms_per_img``."""
+    from mnc_tpu_torch.pipeline.inference import PostCfg
+    from mnc_tpu_torch.tools import ablation_study as A
+
+    runs = []
+    append = os.path.join(tmp, "ablation.jsonl")
+    with patched(A, "run_variant", counting(A.run_variant, runs)):
+        stdout, sec, _ = run_tool("ablation_study",
+                                  ["--params", npz, *ABLATION, "--append", append])
+    recs = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+    labels = [r["config"] for r in recs]
+    if labels != list(A.variants(A.base_arch(A.parse_args([])), PostCfg())) or len(runs) != 8:
+        raise AssertionError(f"ablation_study: records {labels}")
+    by_path = {f"ablation_{r['config']}": c for r, (c, _, _) in zip(recs, runs)}
+    for label, c in by_path.items():
+        if bool(c["gemm_s8_cuda"] and c["quant_act_cuda"]) != (label == "ablation_5stage_int8"):
+            raise AssertionError(f"ablation_study: E/F launches on {label}: {c}")
+    for r in recs:
+        log(f"ablation {r['config']:<18} on {device_label}: mAP^r .5/.7 {r['map_r_050']:.4f}/"
+            f"{r['map_r_070']:.4f} avg {r['map_r_avg']:.4f}; CI .5 {r['ci_050']}; "
+            f"{r['ms_per_img']:.1f} ms per image; launches {by_path['ablation_' + r['config']]}")
+    stdout2, sec2, _ = run_tool("ablation_study", ["--params", npz, *ABLATION, "--append",
+                                                   append, "--only", "3stage"])
+    (only,) = [json.loads(ln) for ln in stdout2.splitlines() if ln.startswith("{")]
+    if "delta_050_vs_5stage" not in only or "delta_070_vs_5stage" not in only:
+        raise AssertionError(f"ablation_study --only 3stage: no paired deltas: {only}")
+    log(f"ablation_study on {device_label}: 8 variants {sec:.1f} s, --only 3stage {sec2:.1f} s; "
+        f"paired deltas vs 5stage {only['delta_050_vs_5stage']} / "
+        f"{only['delta_070_vs_5stage']}")
+
+    smoke = {}
+    for dev in ("cuda", "cpu"):
+        out, s, _ = run_tool("ablation_study", [*ABLATION_SMOKE, "--device", dev])
+        smoke[dev] = ([{k: v for k, v in json.loads(ln).items() if k != "ms_per_img"}
+                       for ln in out.splitlines() if ln.startswith("{")], s)
+    if smoke["cuda"][0] != smoke["cpu"][0] or len(smoke["cpu"][0]) != 8:
+        raise AssertionError(f"ablation_study --smoke: card and CPU records differ:\n"
+                             f"{smoke['cuda'][0]}\n{smoke['cpu'][0]}")
+    log(f"ablation_study --smoke (f32) on {device_label}: the 8 records equal to the CPU's "
+        f"but ms_per_img ({smoke['cuda'][1]:.1f} / {smoke['cpu'][1]:.1f} s)")
+    return by_path
+
+
+def ported_ops_agree(device_label, vgg):
+    """(iv) ``TEST.VOTE_IMPL gather`` against ``einsum`` on phase 4a's first
+    request; (v) ``roi_pool`` on a VGG conv5 map and the whole-class voting
+    ops, card against CPU; (vi) ``rle_encode`` of one full-resolution mask,
+    the compiled helper against numpy."""
+    from mnc_tpu_torch import native
+    from mnc_tpu_torch.models.mnc import MNC
+    from mnc_tpu_torch.ops import mask_voting as mv
+    from mnc_tpu_torch.ops.roi_warp import roi_pool
+    from mnc_tpu_torch.pipeline.inference import PostCfg, postprocess_detections, vote_candidates
+
+    model = MNC(vgg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)  # serve_path's first request
+    req = torch.randint(0, 256, (4, *vgg.canvas, 3), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    infos = torch.tensor([[float(vgg.canvas[0]), float(vgg.canvas[1]), 1.0]] * 4, device="cuda")
+    net = model.apply_batch(req, infos)
+    feat = model.features(req)
+    del model
+    outs, ms = {}, {}
+    for impl in ("einsum", "gather"):
+        post = PostCfg.from_cfg(dets_per_class=16, vote_impl=impl)
+
+        def run(post=post):
+            with torch.inference_mode():
+                return postprocess_detections(*vote_candidates(net, post, 5, axis=1), post,
+                                              vgg.canvas)
+
+        outs[impl] = run()
+        ms[impl] = cuda_ms(run, iters=10, warmup=2)
+    a, b = outs["einsum"], outs["gather"]
+    for key in ("valid", "classes", "boxes", "scores"):
+        if not torch.equal(a[key], b[key]):
+            raise AssertionError(f"vote_impl gather: {key} differs from einsum's")
+    merr = (a["masks"] - b["masks"]).abs().max().item()
+    mism = (a["canvas_masks"] != b["canvas_masks"]).float().mean().item()
+    if merr > 1e-5 or mism > 1e-4:
+        raise AssertionError(f"vote_impl gather: masks {merr:.2e}, canvas pixels {mism:.2e}")
+    log(f"vote_impl on {device_label}, phase 4a's request (4 canvases, {int(a['valid'].sum())} "
+        f"detections): gather's detections equal einsum's, merged masks within {merr:.2e} "
+        f"(tolerance 1e-5), canvas pixels differing {mism:.2e}; postprocess {ms['einsum']:.3f} "
+        f"ms (einsum) against {ms['gather']:.3f} ms (gather)")
+
+    gp = torch.Generator(device="cuda").manual_seed(4)
+    rois = torch.stack([random_boxes(gp, 76, *vgg.canvas) for _ in range(4)])
+    got = roi_pool(feat, rois, (7, 7), 1 / 16)
+    want = roi_pool(feat.cpu(), rois.cpu(), (7, 7), 1 / 16)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("roi_pool: the card's result differs from the CPU's")
+    pool_ms = cuda_ms(lambda: roi_pool(feat, rois, (7, 7), 1 / 16), iters=5, warmup=1)
+    # one class's candidates of the request's first canvas
+    cand, scores = net["rois"][0], net["cls_prob"][0, :, 1]
+    masks, valid = torch.sigmoid(net["mask_logits"][0].float()), net["roi_valid"][0]
+    kept = cand[torch.sort(scores, descending=True, stable=True).indices[:16]]
+    args = (kept, cand, scores, masks, valid)
+    mg, mc = mv.mask_voting(*args), mv.mask_voting(*(t.cpu() for t in args))
+    bg = mv.box_voting(kept, cand, scores, valid)
+    bc = mv.box_voting(*(t.cpu() for t in (kept, cand, scores, valid)))
+    verr, berr = (mg.cpu() - mc).abs().max().item(), (bg.cpu() - bc).abs().max().item()
+    if verr > 1e-4 or berr > 1e-3:  # f32 sums of up to 304 terms in another order
+        raise AssertionError(f"mask_voting / box_voting: card against CPU {verr:.2e} / {berr:.2e}")
+    vote_ms = cuda_ms(lambda: mv.mask_voting(*args), iters=10, warmup=2)
+    log(f"roi_pool on {device_label}: {tuple(feat.shape)} {feat.dtype} map, {rois.shape[1]} RoIs "
+        f"an image, 7x7: equal to the CPU's bit for bit; {pool_ms:.3f} ms on the card. "
+        f"mask_voting / box_voting on one class's {cand.shape[0]} candidates, 16 kept: card "
+        f"against CPU {verr:.2e} / {berr:.2e} px (tolerances 1e-4 / 1e-3); mask_voting "
+        f"{vote_ms:.3f} ms on the card")
+
+    yy, xx = np.mgrid[:640, :1024]
+    mask = (((yy - 300) / 180.0) ** 2 + ((xx - 520) / 310.0) ** 2 <= 1.0).astype(np.uint8)
+    lib, plain = native.rle_encode(mask), native.rle_encode_plain(mask)
+    if not np.array_equal(lib["counts"], plain["counts"]):
+        raise AssertionError("rle_encode: the compiled helper differs from numpy")
+    t = {}
+    for name, fn in (("lib", native.rle_encode), ("numpy", native.rle_encode_plain)):
+        walls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn(mask)
+            walls.append(time.perf_counter() - t0)
+        t[name] = float(np.median(walls)) * 1e3
+    log(f"rle_encode of one 640x1024 mask ({len(lib['counts'])} runs) on the host of "
+        f"{device_label}: compiled {t['lib']:.3f} ms against numpy {t['numpy']:.3f} ms "
+        f"(medians of 20), equal counts")
+
+
+def tools_paths(device_label, tmp, vgg) -> dict:
+    """Phase 4l; returns the launch counts by path."""
+    t_phase = time.perf_counter()
+    by_path, npz = e2e_vgg_path(device_label, tmp)
+    torch.cuda.empty_cache()
+    by_path.update(e2e_remat_path(device_label, tmp))
+    torch.cuda.empty_cache()
+    by_path.update(ablation_paths(device_label, tmp, npz))
+    torch.cuda.empty_cache()
+    ported_ops_agree(device_label, vgg)
+    torch.cuda.empty_cache()
+    log(f"phase 4l on {device_label}: {time.perf_counter() - t_phase:.1f} s in all")
+    return by_path
+
+
 CHECKS = {"roi_warp": check_roi_warp, "roi_warp_bwd": check_roi_warp_bwd, "nms": check_nms,
           "paste_binarize": check_paste, "block1": check_block1, "gemm_s8": check_gemm_s8,
           "quant_act": check_quant_act}
@@ -3460,7 +3826,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of mnc_tpu_torch on one GPU")
     ap.add_argument("--only", default=None, help="comma-separated kernels: build and "
                     "check only these, skip the main paths (for bringing a kernel up); "
-                    "'parallel': build every kernel and run phase 4k alone")
+                    "'parallel' or 'tools': build every kernel and run phase 4k or 4l alone")
     ap.add_argument("--parallel-worker", nargs=4, default=None,
                     metavar=("RANK", "WORLD", "INIT_FILE", "OUT_DIR"),
                     help="(internal) one rank of phase 4k's gloo group")
@@ -3481,22 +3847,29 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build
-    from mnc_tpu_torch import kernels
+    # phase 2: build (the host helpers' g++ beside the nvcc processes)
+    from concurrent.futures import ThreadPoolExecutor
 
-    only = args.only.split(",") if args.only and args.only != "parallel" else None
+    from mnc_tpu_torch import kernels, native
+
+    phase_only = args.only in ("parallel", "tools")
+    only = args.only.split(",") if args.only and not phase_only else None
     t0 = time.perf_counter()
-    paths = kernels.build(only)
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        lib = pool.submit(native.build)
+        paths = kernels.build(only)
+        lib = lib.result()
+    log(f"build: {time.perf_counter() - t0:.1f} s; host helpers {lib.name} (g++ "
+        f"{' '.join(native.CXX_FLAGS)})")
     for name, path in paths.items():
         log_path = path.with_suffix(".log")
         usage = [ln.strip() for ln in (log_path.read_text().splitlines()
                                        if log_path.exists() else []) if "registers" in ln]
         log(f"build {name}: " + ("; ".join(usage) or "cached"))
 
-    if args.only == "parallel":
-        by_path = main_paths(None, smi, only_parallel=True)
-        print(json.dumps({"parallel": by_path}))
+    if phase_only:
+        by_path = main_paths(None, smi, only_phase=args.only)
+        print(json.dumps({args.only: by_path}))
         return 0
     # phase 3: kernels against their plain versions
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -3514,17 +3887,20 @@ def main(argv=None) -> int:
     return 0
 
 
-def main_paths(g, smi, only_parallel=False) -> dict:
+def main_paths(g, smi, only_phase=None) -> dict:
     """Phase 4: each main path with the launch counters zeroed just before
-    it and read just after; returns the counts by path."""
-    if only_parallel:
-        with tempfile.TemporaryDirectory() as tmp:
-            return parallel_paths(f"{torch.cuda.get_device_name(0)} ({smi})", tmp)
+    it and read just after; returns the counts by path.  ``only_phase``
+    "parallel" or "tools" runs phase 4k or 4l alone."""
     from mnc_tpu_torch.models.mnc import MNCArch
 
     label = f"{torch.cuda.get_device_name(0)} ({smi})"
     vgg = MNCArch(pre_nms_top_n=6000, post_nms_top_n=304, nms_chunk=256,
                   compute_dtype=torch.bfloat16)
+    if only_phase:
+        with tempfile.TemporaryDirectory() as tmp:
+            if only_phase == "parallel":
+                return parallel_paths(label, tmp)
+            return tools_paths(label, tmp, vgg)
     by_path = {"serve": serve_path(label, "VGG-16", vgg)}
     arch = MNCArch.from_cfg(train=True)
     assert (arch.pre_nms_top_n, arch.post_nms_top_n, arch.fc_dim, arch.n_stages,
@@ -3601,6 +3977,10 @@ def main_paths(g, smi, only_parallel=False) -> dict:
 
         # phase 4k: parallel training and evaluation, on phase 4j's SBD tree
         by_path.update(parallel_paths(label, tmp))
+        torch.cuda.empty_cache()
+
+        # phase 4l: the train -> detect -> mAP^r tools, remat, voting, roi_pool
+        by_path.update(tools_paths(label, tmp, vgg))
     torch.cuda.empty_cache()
     return by_path
 
@@ -3639,6 +4019,14 @@ def report_kernels(results, by_path, t_start) -> None:
     real_train += ("train_dp", "dp_gloo", "tp_gloo", "train_dp_gloo")
     real_test += ("test_dp", "test_dp_int8", "test_dp_gloo")
     int8 += ("test_dp_int8",)
+    # phase 4l: the tools (e2e_remat trains and evaluates)
+    from mnc_tpu_torch.pipeline.inference import PostCfg
+    from mnc_tpu_torch.tools.ablation_study import base_arch, parse_args, variants
+
+    ablation = tuple(f"ablation_{v}" for v in variants(base_arch(parse_args([])), PostCfg()))
+    real_train += ("e2e_train", "e2e_remat")
+    real_test += ("e2e_eval", "e2e_int8_eval", "e2e_remat") + ablation
+    int8 += ("e2e_int8_eval", "ablation_5stage_int8")
     must = {"roi_warp": serving + training + int8 + cfm + ("cfm_train",) + real_train
             + real_test,
             "roi_warp_bwd": training + ("cfm_train",) + real_train,

@@ -16,9 +16,10 @@ the reference computed per image on the host; the port keeps the JAX
 package's padded shapes and validity masks, so its outputs compare element by
 element.  Keys that select between XLA/Pallas formulations of the JAX package
 (``NET.ROI_WARP_IMPL``, ``TEST.PASTE_IMPL``, ``TEST.PASTE_DTYPE``,
-``TEST.VOTE_IMPL``, ``STATIC.NMS_CHUNK``'s tile size) are read but the port has
-one route for each op: its CUDA kernel on the GPU, its plain version on the
-CPU.
+``STATIC.NMS_CHUNK``'s tile size) are read but the port has one route for
+each of those ops: its CUDA kernel on the GPU, its plain version on the CPU.
+``TEST.VOTE_IMPL`` keeps both of its routes (``PostCfg.vote_impl``: the
+hat-matrix product or the 2-tap gather, plain PyTorch on either device).
 """
 
 from __future__ import annotations
@@ -238,8 +239,8 @@ __C.TEST.U8_TRANSFER = True
 # Example: ((480, 640), (512, 864))
 __C.TEST.CANVAS_BUCKETS = ()
 __C.TEST.MAX_PER_IMAGE = 100
-# Voting mask-resample implementation of the JAX package; the port always
-# runs the per-pair hat products ("einsum").
+# Voting mask resample (PostCfg.vote_impl): "einsum" (per-pair hat products)
+# or "gather" (separable 2-tap gather; the same math to f32 rounding).
 __C.TEST.VOTE_IMPL = "einsum"
 # Canvas paste-back implementation and dtype of the JAX package; the port
 # always pastes and binarizes in f32 (its kernel on the GPU).

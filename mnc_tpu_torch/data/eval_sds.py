@@ -15,15 +15,16 @@ so the evaluator serves PASCAL/SBD, COCO and the synthetic dataset alike:
             box-cropped + box)}
     gt   = per image: list of {class_id, mask}
 
-Mask IoU is computed with numpy (:func:`mask_iou_matrix`, the JAX
-package's fallback for its native helper; ``mnc_tpu_torch.native`` exports
-this same function).
+Mask IoU is computed by the port's compiled host helper
+(``mnc_tpu_torch.native.mask_iou_matrix``, popcounts of bit-packed masks),
+where the JAX package calls its own.
 """
 
 from __future__ import annotations
 
-
 import numpy as np
+
+from mnc_tpu_torch.native import mask_iou_matrix  # noqa: F401  (the evaluator's)
 
 
 def mask_iou(a: np.ndarray, b: np.ndarray) -> float:
@@ -33,16 +34,6 @@ def mask_iou(a: np.ndarray, b: np.ndarray) -> float:
     inter = np.logical_and(a, b).sum()
     union = np.logical_or(a, b).sum()
     return float(inter) / max(float(union), 1.0)
-
-
-def mask_iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """(N, H, W) x (M, H, W) binary masks → (N, M) f32 IoU.  The pixel
-    counts are sums of 0/1 products, exact in f32 below 2^24 pixels."""
-    a = (a.reshape(len(a), -1) > 0.5).astype(np.float32)
-    b = (b.reshape(len(b), -1) > 0.5).astype(np.float32)
-    inter = a @ b.T
-    union = a.sum(1)[:, None] + b.sum(1)[None, :] - inter
-    return inter / np.maximum(union, np.float32(1.0))
 
 
 def voc_ap(rec: np.ndarray, prec: np.ndarray, use_07_metric: bool = False) -> float:

@@ -14,6 +14,7 @@ counterpart.  Training uses the stage methods (``features``, ``rpn``,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -22,6 +23,7 @@ import warnings
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mnc_tpu_torch import config as C
 from mnc_tpu_torch.models.heads import ClassifyHead, MaskHead, RPNHead
@@ -105,6 +107,10 @@ class MNCArch:
     # on the card) with the same parameters; the activation scale of a
     # convolution covers all the canvases (RoIs) of a batch
     int8_inference: bool = False
+    # rematerialize the trunk in the backward (the JAX package's nn.remat):
+    # its activations are dropped after the forward and recomputed when the
+    # gradient needs them.  Memory, not math: the same loss and gradients
+    remat_trunk: bool = False
 
     def __post_init__(self):
         if self.pooled_hw is None:
@@ -348,7 +354,10 @@ class MNC(nn.Module):
       seed: seeds the random init, which follows the JAX package's flax
         initializers (lecun-normal kernels, zero biases, normal(0.001) for
         ``bbox_pred``, FrozenBN scales of ones and zeros on every ``bn3``).
-        Load trained or bridged weights with ``load_state_dict``.
+        Load trained or bridged weights with ``load_state_dict``.  ``None``:
+        no init (the layers are built on the meta device and their memory
+        left uninitialized on ``device``) for a caller that loads every
+        weight next; the init of a full-width model takes seconds of CPU.
       train: ``False`` (serving): the weights are held in
         ``arch.compute_dtype`` and take no gradient; under
         ``arch.int8_inference`` the int8 layers' weights and biases stay f32,
@@ -359,12 +368,35 @@ class MNC(nn.Module):
         training mode.
     """
 
-    def __init__(self, arch: MNCArch = MNCArch(), device=None, seed: int = 0,
+    def __init__(self, arch: MNCArch = MNCArch(), device=None, seed: int | None = 0,
                  train: bool = False):
         super().__init__()
         dev = resolve_device(device)
-        a = arch
-        self.arch = a
+        self.arch = a = arch
+        cd = a.compute_dtype
+        with contextlib.nullcontext() if seed is not None else torch.device("meta"):
+            self._build_layers(a)
+        if seed is None:
+            self.to_empty(device=dev)
+        else:
+            self._init_layers(seed)
+        self.register_buffer("anchors", torch.from_numpy(a.all_anchors()),
+                             persistent=False)
+        self.register_buffer("resize_mat", torch.from_numpy(
+            linear_resize_matrix(a.mask_size, a.warp_hw)), persistent=False)
+        self.requires_grad_(train)
+        self.train(train)
+        self.to(dev)
+        if not train:
+            for m in (self.trunk, self.rpn_head, self.mask_head, self.classify_head):
+                for mod in m.modules():
+                    if not isinstance(mod, QUANT_LAYERS):
+                        mod._apply(lambda t: t.to(cd), recurse=False)
+        if dev.type == "cuda":  # cuDNN's NHWC kernels for the NHWC convolutions
+            for m in (self.trunk, self.rpn_head, self.classify_head):
+                m.to(memory_format=torch.channels_last)
+
+    def _build_layers(self, a: MNCArch) -> None:
         cd = a.compute_dtype
         q = a.int8_inference  # no gradient passes the int8 layers
         if a.trunk == "vgg16":
@@ -388,6 +420,8 @@ class MNC(nn.Module):
             self.classify_head = ClassifyHead(a.pooled_hw * a.pooled_hw * c, a.num_classes,
                                               a.fc_dim, a.warp_hw // a.pooled_hw, cd,
                                               dual_pathway=a.dual_pathway, int8=q)
+
+    def _init_layers(self, seed: int) -> None:
         gen = torch.Generator().manual_seed(seed)
         for mod_name, mod in self.named_modules():
             if isinstance(mod, FrozenBN):
@@ -401,21 +435,6 @@ class MNC(nn.Module):
                     nn.init.normal_(p, 0.0, 0.001, generator=gen)
                 else:
                     _lecun_normal_(p, p[0].numel(), gen)
-        self.register_buffer("anchors", torch.from_numpy(a.all_anchors()),
-                             persistent=False)
-        self.register_buffer("resize_mat", torch.from_numpy(
-            linear_resize_matrix(a.mask_size, a.warp_hw)), persistent=False)
-        self.requires_grad_(train)
-        self.train(train)
-        self.to(dev)
-        if not train:
-            for m in (self.trunk, self.rpn_head, self.mask_head, self.classify_head):
-                for mod in m.modules():
-                    if not isinstance(mod, QUANT_LAYERS):
-                        mod._apply(lambda t: t.to(cd), recurse=False)
-        if dev.type == "cuda":  # cuDNN's NHWC kernels for the NHWC convolutions
-            for m in (self.trunk, self.rpn_head, self.classify_head):
-                m.to(memory_format=torch.channels_last)
 
     @property
     def device(self) -> torch.device:
@@ -436,7 +455,12 @@ class MNC(nn.Module):
     # ---- stage pieces ----
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
-        return self.trunk(device_normalize(images))
+        x = device_normalize(images)
+        if self.arch.remat_trunk and torch.is_grad_enabled():
+            # the trunk's forward runs again in the backward, kernel D's
+            # autograd.Function included; no trunk layer draws random numbers
+            return checkpoint(self.trunk, x, use_reentrant=False)
+        return self.trunk(x)
 
     def rpn(self, feat: torch.Tensor):
         return self.rpn_head(feat)

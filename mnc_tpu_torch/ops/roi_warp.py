@@ -16,7 +16,9 @@ is required, through :class:`RoIWarpFunction`, whose backward is kernel A′
 JAX package's hat-matrix einsum, differentiated by autograd.  Without a
 gradient the call goes through the custom op ``mnc::roi_warp`` (kernel A on
 CUDA, the plain version on the CPU, a fake for tracing), which
-``torch.export`` keeps as one opaque node.  ``roi_pool`` is not ported yet.
+``torch.export`` keeps as one opaque node.  :func:`roi_pool` is the
+Fast-RCNN quantized max pooling, plain PyTorch on either device (the JAX
+package's is plain ``jnp`` too).
 """
 
 from __future__ import annotations
@@ -157,3 +159,77 @@ def roi_warp(features: torch.Tensor, rois: torch.Tensor,
     else:
         out = roi_warp_plain(features, rois.float(), out_hw, spatial_scale)
     return out[0] if single else out
+
+
+def c_round(x: torch.Tensor) -> torch.Tensor:
+    """C/C++ ``std::round``: half AWAY from zero, what the Caffe layer used
+    (``torch.round`` is half-to-even, which flips every corner landing
+    exactly on a .5 feature coordinate, e.g. x = 8 at stride 16)."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def _bin_mask(lo: torch.Tensor, rsz: torch.Tensor, src_size: int, nbins: int) -> torch.Tensor:
+    """(N,) int bin origins and extents → (N, S, P) bool: cell s lies in
+    [lo + floor(p·rsz/nbins), lo + ceil((p+1)·rsz/nbins)).  Exact integer
+    arithmetic: a float quotient that is an ulp high annexes a whole extra
+    feature cell at an exact-integer edge (e.g. 7·(9/7) → 9.000001)."""
+    p = torch.arange(nbins, device=lo.device)
+    start = (p * rsz[:, None]) // nbins + lo[:, None]
+    end = ((p + 1) * rsz[:, None] + nbins - 1) // nbins + lo[:, None]
+    s = torch.arange(src_size, device=lo.device)[None, :, None]
+    return (s >= start[:, None, :]) & (s < end[:, None, :])
+
+
+# RoIs are pooled in chunks whose first-stage temporary (RoIs × H × W × PW × C
+# elements) stays under this size
+POOL_CHUNK_ELEMS = 1 << 26
+
+
+def _roi_pool_one(features: torch.Tensor, rois: torch.Tensor, out_hw,
+                  spatial_scale: float) -> torch.Tensor:
+    h, w, c = features.shape
+    ph, pw = out_hw
+    q = c_round(rois.float() * spatial_scale).to(torch.int64)  # (N, 4) corners
+    my = _bin_mask(q[:, 1], (q[:, 3] - q[:, 1] + 1).clamp_min(1), h, ph)  # (N, H, PH)
+    mx = _bin_mask(q[:, 0], (q[:, 2] - q[:, 0] + 1).clamp_min(1), w, pw)  # (N, W, PW)
+    f = features.float()
+    neg = torch.finfo(torch.float32).min
+    step = max(1, POOL_CHUNK_ELEMS // (h * w * pw * c))
+    outs = []
+    for i in range(0, rois.shape[0], step):
+        mxi, myi = mx[i:i + step], my[i:i + step]
+        # max over w per x-bin: (n, H, PW, C); then over h per y-bin: (n, PH, PW, C)
+        fx = torch.where(mxi[:, None, :, :, None], f[None, :, :, None, :], neg).amax(2)
+        out = torch.where(myi.transpose(1, 2)[..., None, None], fx[:, None], neg).amax(2)
+        outs.append(torch.where(out == neg, out.new_zeros(()), out))
+    if not outs:
+        return features.new_zeros((0, ph, pw, c))
+    return torch.cat(outs).to(features.dtype)
+
+
+def roi_pool(features: torch.Tensor, rois: torch.Tensor, out_hw: tuple[int, int] = (7, 7),
+             spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """Fast-RCNN quantized RoI max pooling with Caffe's semantics
+    (``roi_pooling_layer.cpp``), the JAX package's ``roi_pool``.
+
+    The RoI corners are rounded on the feature grid (:func:`c_round`); bin
+    (p, q) covers the feature cells [floor(p·bh), ceil((p+1)·bh)) of the
+    RoI, clipped to the map, and takes their max; an empty bin is 0.  The
+    max is separable and masked, as in JAX: first over w within each
+    x-bin, then over h within each y-bin, each stage a masked ``amax`` with
+    a ``finfo(f32).min`` sentinel.  The backward goes to the features only,
+    through autograd; ``amax`` splits a tie's gradient evenly among the tied
+    cells, as JAX's ``max`` does, and keeping JAX's two stages makes an
+    uneven pattern of ties split as it does there.
+
+    Args:
+      features: (H, W, C) map with (N, 4) ``rois``, or (B, H, W, C) maps
+        with (B, N, 4) ``rois`` (x1, y1, x2, y2) in image coordinates.
+      out_hw: (PH, PW).
+
+    Returns (N, PH, PW, C) (or (B, N, PH, PW, C)) in the features' dtype.
+    """
+    if features.dim() == 3:
+        return _roi_pool_one(features, rois, out_hw, spatial_scale)
+    return torch.stack([_roi_pool_one(f, r, out_hw, spatial_scale)
+                        for f, r in zip(features, rois)])

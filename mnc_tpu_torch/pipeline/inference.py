@@ -44,10 +44,10 @@ if TYPE_CHECKING:  # the host half runs without the model code (pipeline/export.
 class PostCfg:
     """Post-processing configuration (reference TEST.* semantics).
 
-    The JAX package's ``vote_impl``, ``paste_impl`` and ``paste_dtype``
-    choose between XLA formulations; the port votes with the per-pair hat
-    products and pastes in f32 (kernel C on the GPU), so it has no such
-    fields."""
+    ``vote_impl`` (``TEST.VOTE_IMPL``) chooses the voting resample, as in the
+    JAX package.  Its ``paste_impl`` and ``paste_dtype`` choose between XLA
+    formulations of the paste; the port pastes in f32 (kernel C on the
+    GPU), so it has no such fields."""
 
     nms_thresh: float = 0.3  # TEST.NMS per-class box NMS
     dets_per_class: int = 16  # padded per-class keep
@@ -64,6 +64,9 @@ class PostCfg:
     score_thresh: float = 0.0  # candidates below are dropped
     paste: bool = True  # paste the masks into full canvases
     binarize_thresh: float = 0.4  # cfg.BINARIZE_THRESH
+    # TEST.VOTE_IMPL: the voting resample, "einsum" (per-pair hat products)
+    # or "gather" (separable 2-tap gather; the same math to f32 rounding)
+    vote_impl: str = "einsum"
 
     @classmethod
     def from_cfg(cls, **over) -> "PostCfg":
@@ -78,6 +81,7 @@ class PostCfg:
             vote_boxes=bool(cfg.TEST.VOTE_BOXES),
             vote_both_passes=bool(cfg.TEST.VOTE_BOTH_PASSES),
             binarize_thresh=cfg.BINARIZE_THRESH,
+            vote_impl=str(cfg.TEST.VOTE_IMPL),
         )
         kw.update(over)
         return cls(**kw)
@@ -135,7 +139,7 @@ def postprocess_detections(rois: torch.Tensor, roi_valid: torch.Tensor,
             det_boxes = flat_boxes.reshape(b, k, 4)
         cand_masks = take_rows(soft_masks, ci).reshape(b * k, kv, *soft_masks.shape[-2:])
         det_masks = mask_voting_per_det(flat_boxes, cand_boxes, cs, cand_masks,
-                                        post.mask_merge_iou)
+                                        post.mask_merge_iou, impl=post.vote_impl)
         det_masks = det_masks.reshape(b, k, *soft_masks.shape[-2:])
     else:
         det_masks = take_rows(soft_masks, roi_idx)

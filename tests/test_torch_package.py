@@ -41,7 +41,10 @@ def test_port_imports_no_jax_and_no_mnc_tpu():
             "mnc_tpu_torch.utils.vis", "mnc_tpu_torch.models.cfm", "mnc_tpu_torch.data.loader",
             "mnc_tpu_torch.tools.prepare_mcg_maskdb", "mnc_tpu_torch.data.coco",
             "mnc_tpu_torch.data.pascal_voc", "mnc_tpu_torch.utils.png",
-            "mnc_tpu_torch.tools.make_coco_synth"} <= set(mods)
+            "mnc_tpu_torch.tools.make_coco_synth", "mnc_tpu_torch.native",
+            "mnc_tpu_torch.ops.mask_voting", "mnc_tpu_torch.ops.roi_warp",
+            "mnc_tpu_torch.tools.e2e_synth_demo",
+            "mnc_tpu_torch.tools.ablation_study"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -97,16 +100,18 @@ def test_train_net_refuses_to_run_without_gpu(tmp_path):
     assert rc == 0 and (tmp_path / "ckpt_00000002" / "train_state.npz").exists()
 
 
-@pytest.mark.parametrize("tool", ["test_net", "demo"])
+@pytest.mark.parametrize("tool", ["test_net", "demo", "e2e_synth_demo", "ablation_study"])
 def test_eval_entry_points_refuse_to_run_without_gpu(tool, tmp_path):
-    """test_net and demo run on the card unless --device cpu is given."""
+    """test_net, demo, e2e_synth_demo and ablation_study run on the card
+    unless --device cpu is given."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-GPU behaviour cannot be shown")
     import importlib
 
     main = importlib.import_module(f"mnc_tpu_torch.tools.{tool}").main
-    argv = ["--synthetic", "--out", str(tmp_path)] if tool == "demo" else ["--imdb",
-                                                                            "synthetic_4"]
+    argv = {"demo": ["--synthetic", "--out", str(tmp_path)], "test_net": ["--imdb", "synthetic_4"],
+            "e2e_synth_demo": ["--iters", "1", "--out", str(tmp_path)],
+            "ablation_study": ["--smoke", "--append", str(tmp_path / "a.jsonl")]}[tool]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
     assert not any(tmp_path.iterdir())
@@ -208,8 +213,9 @@ def test_arch_and_post_from_cfg():
     p, jp = PostCfg.from_cfg(dets_per_class=16), JPostCfg.from_cfg(dets_per_class=16)
     for f in ("nms_thresh", "dets_per_class", "max_per_image", "use_mask_merge",
               "mask_merge_iou", "vote_top_k", "vote_boxes", "vote_both_passes",
-              "score_thresh", "paste", "binarize_thresh"):
+              "score_thresh", "paste", "binarize_thresh", "vote_impl"):
         assert getattr(p, f) == getattr(jp, f), f
+    assert a.remat_trunk == ja.remat_trunk is False
 
 
 def test_from_cfg_honours_fused_block1():
