@@ -19,7 +19,11 @@ Phases, each printing its lines before the two JSON lines at the end:
    the warp also on the portrait canvas's 64x40 map, the paste also at
    M = 28 on both canvases; and at the shapes of ``cfm_detect``: the warp
    on one image's 300 segments, NMS on 20 per-class problems of 300, the
-   paste at N = 100), and kernel E (the int8 GEMM) at every shape of the
+   paste at N = 100; the warp also at a train step's 2 x 128 RoIs on the
+   RoI sets of its backward, in f32 and bf16, two runs bit-equal, through
+   its banded path too, at N = 0 and on phase 4a's own proposals, timed over
+   a CUDA graph, with the L2 tap bytes of each RoI set), and kernel E (the
+   int8 GEMM) at every shape of the
    int8 serving paths (VGG-16's convolutions from conv1_1's K = 27 to the
    40x64 and 64x40 maps of conv5; fc6, fc7 and fc_mask on 1216 RoIs, fc6 on
    CFM's 300; the ResNet stem's K = 147, 1x1 and 3x3 at stride 1 and 2,
@@ -226,6 +230,34 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_ms(fn, iters=20, replays=3) -> float:
+    """Mean device time of fn over ``iters`` calls captured in one CUDA
+    graph and replayed ``replays`` times: CUDA events around the replays,
+    no host work between the launches (a call whose wrapper takes longer on
+    the host than its kernel on the card is otherwise paced by the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def bound_ms(n_bytes: float, n_flops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / flop_per_s * 1e3
@@ -269,40 +301,144 @@ def random_boxes(g, n, h, w, lo=16.0, hi=500.0):
                          torch.tensor(-40.0, device=dev))
 
 
+# kernel A's shapes: (images, RoIs an image, canvas, channels); the first is the main row
+ROI_WARP_SHAPES = {"C=512": (4, 304, CANVAS, 512),  # the VGG-16 conv5 map of a request
+                   "C=1024": (4, 304, CANVAS, 1024),  # the ResNet conv4 map
+                   "portrait 64x40, C=512": (4, 304, PORTRAIT, 512),
+                   "CFM 1x300, C=512": (1, 300, CANVAS, 512),  # cfm_detect's segments
+                   "train 2x128, C=512": (2, 128, CANVAS, 512)}  # a train step's RoIs
+ROI_WARP_PROPOSALS = "proposals 4x304 (phase 4a), C=512"
+ROI_WARP_OUT_HW, ROI_WARP_SCALE = (14, 14), 1.0 / 16
+# against roi_warp_plain: f32 1e-5 of max|F|; bf16 2 ulps of it (the plain
+# version rounds its hats and x-pass intermediate to bf16)
+ROI_WARP_TOLERANCES = {torch.float32: 1e-5, torch.bfloat16: 2 * 2.0 ** -7}
+
+
+def main_path_rois():
+    """Phase 4a's first request up to its proposals: the VGG-16 serving
+    model of ``serve_path`` (seed 0) on the same uint8 canvases; (conv5
+    features (4, 40, 64, 512) bf16, ``propose_rois``' rois (4, 304, 4))."""
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch, propose_rois
+
+    arch = MNCArch(pre_nms_top_n=6000, post_nms_top_n=304, nms_chunk=256,
+                   compute_dtype=torch.bfloat16)
+    model = MNC(arch, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    req = torch.randint(0, 256, (4, *arch.canvas, 3), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    infos = torch.tensor([[float(arch.canvas[0]), float(arch.canvas[1]), 1.0]] * 4,
+                         device="cuda")
+    with torch.inference_mode():
+        feat = model.features(req)
+        rpn_cls, rpn_bbox = model.rpn(feat)
+        rois, _, _ = propose_rois(rpn_cls, rpn_bbox, infos, model.anchors, arch)
+    del model
+    torch.cuda.empty_cache()
+    return feat.clone().contiguous(), rois.clone().float().contiguous()
+
+
 def check_roi_warp(g):
-    """Kernel A on the VGG-16 conv5 map (C = 512) and the ResNet conv4 map
-    (C = 1024) of a serving request, on the portrait canvas's 64 x 40 map
-    (C = 512), and on one image's 300 segments (``cfm_detect``); the first
-    is the main row."""
-    shapes = {f"C={c}": _check_roi_warp(g, c) for c in (512, 1024)}
-    shapes["portrait 64x40, C=512"] = _check_roi_warp(g, 512, PORTRAIT)
-    shapes["CFM 1x300, C=512"] = _check_roi_warp(g, 512, b=1, n=300)
+    """Kernel A at every shape of ``ROI_WARP_SHAPES`` on random boxes and at
+    phase 4a's proposals (held, timed over a CUDA graph and back to back,
+    bounded; its L2 tap bytes), on kernel A′'s RoI sets at the train shape
+    (held in f32 and bf16, two runs bit-equal, the banded path bit-equal to
+    the one-band launch), and at N = 0; the C = 512 row is the main row."""
+    from mnc_tpu_torch.kernels import roi_warp_cuda
+
+    shapes = {label: _check_roi_warp(g, c, canvas, b, n)
+              for label, (b, n, canvas, c) in ROI_WARP_SHAPES.items()}
+    feat, rois = main_path_rois()
+    shapes[ROI_WARP_PROPOSALS] = _check_roi_warp(g, 512, feat=feat, rois=rois)
+    b, n, canvas, c = ROI_WARP_SHAPES["train 2x128, C=512"]
+    feat32 = torch.randn(b, canvas[0] // 16, canvas[1] // 16, c, generator=g, device="cuda")
+    for label, rois in _bwd_box_sets(g, b, n).items():
+        _hold_roi_warp(feat32, rois, f"[{label}] train 2x128")
+        _hold_roi_warp_bands(feat32, rois, f"[{label}] train 2x128")
+    before = roi_warp_cuda.launches
+    empty = roi_warp_cuda(feat32, torch.zeros(b, 0, 4, device="cuda"), ROI_WARP_OUT_HW,
+                          ROI_WARP_SCALE)
+    if tuple(empty.shape) != (b, 0, *ROI_WARP_OUT_HW, c) or roi_warp_cuda.launches != before:
+        raise AssertionError(f"roi_warp at N = 0: shape {tuple(empty.shape)}, "
+                             f"{roi_warp_cuda.launches - before} launches")
+    log(f"kernel A roi_warp N=0: shape {tuple(empty.shape)}, no launch")
     return dict(shapes["C=512"], shapes=shapes)
 
 
-def _check_roi_warp(g, c, canvas=CANVAS, b=4, n=304):
-    from mnc_tpu_torch.kernels import roi_warp_cuda
-    from mnc_tpu_torch.ops.roi_warp import bin_centers, roi_warp_plain
-    import torch.nn.functional as F
+def _hold_roi_warp(feat32, rois, label):
+    """Kernel A against roi_warp_plain in f32 and bf16 within
+    ``ROI_WARP_TOLERANCES``, each dtype twice, bit-equal (no atomics);
+    returns (bf16 max_abs_err, L2 tap bytes of these rois in bf16)."""
+    from mnc_tpu_torch.kernels import plan_roi_warp, roi_warp_cuda, roi_warp_l2_bytes
+    from mnc_tpu_torch.ops.roi_warp import roi_warp_plain
 
-    out_hw, s = (14, 14), 1.0 / 16
-    h, w = canvas[0] // 16, canvas[1] // 16
-    feat32 = torch.randn(b, h, w, c, generator=g, device="cuda")
-    rois = torch.stack([random_boxes(g, n, *canvas) for _ in range(b)])
-    result = {}
-    for dt, tol_scale in ((torch.float32, 1e-5), (torch.bfloat16, 2 * 2.0 ** -7)):
+    out_hw, s = ROI_WARP_OUT_HW, ROI_WARP_SCALE
+    b, h, w, c = feat32.shape
+    errs = {}
+    for dt, tol_scale in ROI_WARP_TOLERANCES.items():
         f = feat32.to(dt)
         got = roi_warp_cuda(f, rois, out_hw, s)
         want = roi_warp_plain(f, rois, out_hw, s)
         err = (got.float() - want.float()).abs().max().item()
         tol = tol_scale * f.float().abs().max().item()
-        log(f"kernel A roi_warp {dt} map {h}x{w} C={c}: max_abs_err {err:.3e} "
-            f"(tolerance {tol:.3e})")
+        again = torch.equal(got, roi_warp_cuda(f, rois, out_hw, s))
+        log(f"kernel A roi_warp {label} {dt} map {h}x{w} C={c}: max_abs_err {err:.3e} "
+            f"(tolerance {tol:.3e}); two runs bit-equal {again}")
         if not err <= tol:
-            raise AssertionError(f"roi_warp kernel disagrees with its plain version in {dt}")
-        result[dt] = err
-    f = feat32.to(torch.bfloat16)
-    k_ms = cuda_ms(lambda: roi_warp_cuda(f, rois, out_hw, s))
+            raise AssertionError(f"roi_warp kernel disagrees with its plain version in {dt} "
+                                 f"({label})")
+        if not again:
+            raise AssertionError(f"roi_warp: two runs differ ({label}, {dt})")
+        errs[dt] = err
+    l2 = roi_warp_l2_bytes(rois, out_hw, s, (h, w), c, 2,
+                           plan_roi_warp(b, rois.shape[1], c, torch.bfloat16, out_hw, (h, w)))
+    out_bytes = rois.shape[0] * rois.shape[1] * out_hw[0] * out_hw[1] * c * 2
+    log(f"kernel A roi_warp {label}: L2 tap bytes (bf16) map slabs staged "
+        f"{l2['staged'] / 1e6:.1f} MB; per-RoI staging {l2['per_roi'] / 1e6:.1f} MB; first "
+        f"port's design {l2['old_per_row'] / 1e6:.1f}-{l2['old_every_tap'] / 1e6:.1f} MB; "
+        f"output {out_bytes / 1e6:.1f} MB")
+    return errs[torch.bfloat16], l2
+
+
+def _hold_roi_warp_bands(feat32, rois, label, band_rows=13):
+    """Kernel A's path for maps too large for shared memory (the map slab
+    staged in bands of ``band_rows`` rows, 128-byte cells) forced on this
+    map: bit for bit the one-band launch of ``roi_warp_cuda``, f32 and
+    bf16."""
+    from mnc_tpu_torch.kernels import _roi_warp, plan_roi_warp, roi_warp_cuda
+
+    out_hw, s = ROI_WARP_OUT_HW, ROI_WARP_SCALE
+    b, h, w, c = feat32.shape
+    for dt in ROI_WARP_TOLERANCES:
+        f = feat32.to(dt)
+        plan = plan_roi_warp(b, rois.shape[1], c, dt, out_hw, (h, w), band_rows=band_rows)
+        banded = _roi_warp("roi_warp", f, rois, out_hw, s, plan)
+        if plan.bands < 2 or not torch.equal(banded, roi_warp_cuda(f, rois, out_hw, s)):
+            raise AssertionError(f"roi_warp in {plan.bands} bands of {band_rows} rows differs "
+                                 f"from one band ({label}, {dt})")
+    log(f"kernel A roi_warp {label}: {plan.bands} bands of {band_rows} rows, "
+        f"{plan.cell_chunks * 16}-byte cells: bit-equal to one band in f32 and bf16")
+
+
+def _check_roi_warp(g, c, canvas=CANVAS, b=4, n=304, feat=None, rois=None):
+    """Kernel A held (``_hold_roi_warp``) and timed in bf16 beside the plain
+    version and ``F.grid_sample``, on random features and boxes of ``canvas``
+    (or the given features and rois)."""
+    from mnc_tpu_torch.kernels import roi_warp_cuda
+    from mnc_tpu_torch.ops.roi_warp import bin_centers, roi_warp_plain
+    import torch.nn.functional as F
+
+    out_hw, s = ROI_WARP_OUT_HW, ROI_WARP_SCALE
+    if feat is None:
+        h, w = canvas[0] // 16, canvas[1] // 16
+        feat = torch.randn(b, h, w, c, generator=g, device="cuda")
+        rois = torch.stack([random_boxes(g, n, *canvas) for _ in range(b)])
+    b, h, w, c = feat.shape
+    n = rois.shape[1]
+    label = f"B={b} N={n}"
+    err, l2 = _hold_roi_warp(feat.float(), rois, label)
+    f = feat.to(torch.bfloat16)
+    k_ms = cuda_graph_ms(lambda: roi_warp_cuda(f, rois, out_hw, s))
+    host_ms = cuda_ms(lambda: roi_warp_cuda(f, rois, out_hw, s))
     p_ms = cuda_ms(lambda: roi_warp_plain(f, rois, out_hw, s), iters=5)
     # the library yardstick: grid_sample over the same bin centers
     yc = bin_centers(rois, out_hw[0], s, 0)  # (B, N, PH)
@@ -317,13 +453,14 @@ def _check_roi_warp(g, c, canvas=CANVAS, b=4, n=304):
     l_ms = cuda_ms(lib)
     lib_err = (lib().reshape(b, c, n, *out_hw).permute(0, 2, 3, 4, 1).float()
                - roi_warp_cuda(f, rois, out_hw, s).float()).abs().max().item()
-    log(f"kernel A roi_warp bf16 B={b} N={n} map {h}x{w} C={c}: kernel_ms {k_ms:.4f} "
-        f"plain_ms {p_ms:.4f} "
-        f"library_ms(grid_sample) {l_ms:.4f} (grid_sample vs kernel max diff {lib_err:.3e})")
     out_bytes = b * n * out_hw[0] * out_hw[1] * c * f.element_size()
     bms, by = bound_ms(nbytes(f, rois) + out_bytes, 8.0 * b * n * out_hw[0] * out_hw[1] * c)
-    return dict(max_abs_err=result[torch.bfloat16], ms=k_ms, plain_ms=p_ms,
-                bound_ms=bms, bound_by=by, library_ms=l_ms)
+    log(f"kernel A roi_warp bf16 B={b} N={n} map {h}x{w} C={c}: kernel_ms {k_ms:.4f} (CUDA "
+        f"graph; back to back from the host {host_ms:.4f}) plain_ms {p_ms:.4f} "
+        f"library_ms(grid_sample) {l_ms:.4f} (grid_sample vs kernel max diff {lib_err:.3e}); "
+        f"bound_ms {bms:.4f} ({by}; {bms / k_ms:.0%} of it)")
+    return dict(max_abs_err=err, ms=k_ms, host_paced_ms=host_ms, plain_ms=p_ms, bound_ms=bms,
+                bound_by=by, library_ms=l_ms, l2_tap_bytes=l2)
 
 
 def _bwd_box_sets(g, b, n):

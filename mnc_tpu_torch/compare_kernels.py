@@ -1,9 +1,12 @@
-"""Time the redesigned kernels — B (NMS), A′ (RoI-warp backward), C (paste +
-binarize), D (fused VGG block 1), E (the int8 GEMM), F (the int8 activation
-quantization) — against earlier or differently tuned builds of themselves
-(F also against plain ``quant_act``), on one GPU, inside one process.
+"""Time the redesigned kernels — A (RoI warp), B (NMS), A′ (RoI-warp
+backward), C (paste + binarize), D (fused VGG block 1), E (the int8 GEMM), F
+(the int8 activation quantization) — against earlier or differently tuned
+builds of themselves (F also against plain ``quant_act``), on one GPU,
+inside one process.
 
     python3 -m mnc_tpu_torch.compare_kernels [--parent-csrc DIR] [--only paste,block1]
+        [--roi-warp-variant=-DFLAG] [--roi-warp-plan cell_chunks=2,band_rows=13]
+        [--roi-warp-source LABEL=PATH]
         [--nms-variant=-DMNC_NMS_CLUSTER=8] [--bwd-variant=-DMNC_RWB_THREADS=1024]
         [--paste-variant=-DMNC_PASTE_BAND=64] [--block1-variant=-DMNC_B1_PRODUCERS=1]
         [--gemm-s8-variant=-DMNC_S8_STAGES_128=3] [--bwd-source LABEL=PATH]
@@ -14,17 +17,21 @@ Run it from the repository's root (it borrows ``chip_smoke.py``'s inputs and
 timer).  Two runs on two cards, or at two times, cannot be compared, so every
 build is timed in one call, in the order given and then in reverse (parent,
 change, ..., change, parent), each after its outputs were held against the
-plain PyTorch version (C: binarization equal except within 1e-5 of the
+plain PyTorch version (A: within 1e-5 of max|F| in f32 and 2 bf16 ulps of
+it in bf16, at every shape of ``chip_smoke.ROI_WARP_SHAPES`` and at phase
+4a's proposals, whose L2 tap bytes under the first port's design and today's
+are printed beside the times; C: binarization equal except within 1e-5 of the
 threshold; D: ``block1_tolerance`` with >= 0.999 bit-identical; E and F:
 bit for bit; E at every shape of ``chip_smoke.GEMM_S8_SHAPES``, F in bf16 at
 every int8 layer's input of both trunks, ``chip_smoke.int8_layer_inputs``).
 
 ``--parent-csrc DIR`` names a directory holding the parent commit's sources
 (``git show <commit>:mnc_tpu_torch/csrc/paste.cu > DIR/paste.cu``); each of
-``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu``, ``block1.cu``, ``gemm_s8.cu`` and
-``quant_act.cu`` found there is built and timed.  ``nms.cu`` and
-``roi_warp_bwd.cu`` must have today's C interfaces; ``paste.cu`` and
-``block1.cu`` the first port's (no extent scratch; HWIO weights),
+``roi_warp.cu``, ``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu``, ``block1.cu``,
+``gemm_s8.cu`` and ``quant_act.cu`` found there is built and timed.
+``roi_warp.cu`` must have the first port's C interface (``93b6a8c``: a block
+per output row, no plan); ``nms.cu`` and ``roi_warp_bwd.cu`` today's;
+``paste.cu`` and ``block1.cu`` the first port's (no extent scratch; HWIO weights),
 ``gemm_s8.cu`` its first version's (``2cac255``: unpacked weights, no plan),
 ``quant_act.cu`` its first version's (``c02edfa``: two launches a tensor, a
 partial buffer), and are driven exactly as their wrappers drove them (D's
@@ -33,8 +40,12 @@ every call).  Each ``--*-variant``
 (repeatable) builds the current source with extra ``nvcc`` flags (the macros
 at the head of each source), which is how cluster sizes, block sizes, bands
 and grids are settled; ``--*-source`` times another source file that has
-today's interface.  ``--profile`` also lists, per build, the device time of
-each CUDA kernel it launched (``torch.profiler``).  A build whose outputs are
+today's interface; ``--roi-warp-plan`` (repeatable) times today's kernel A
+under another plan (``plan_roi_warp``'s ``cell_chunks`` and ``band_rows``).
+A is timed over a CUDA graph of 20 calls (``chip_smoke.cuda_graph_ms``):
+back to back from the host, its wrapper's host work paces the small shapes.
+``--profile`` also lists, per build, the device time of each CUDA kernel it
+launched (``torch.profiler``).  A build whose outputs are
 wrong is reported, timed all the same, and fails the run at its end.
 """
 
@@ -56,6 +67,9 @@ from mnc_tpu_torch.kernels import _build
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 PARENT_ABI = {  # the C interfaces of the parent commit's sources
+    # A's first version (93b6a8c): a block per (image, RoI, output row), no plan
+    "roi_warp": ("roi_warp.cu", "mnc_roi_warp_fwd",
+                 [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "nms": _build.KERNEL_ABI["nms"],
     "roi_warp_bwd": _build.KERNEL_ABI["roi_warp_bwd"],
     "paste_binarize": ("paste.cu", "mnc_paste_binarize",
@@ -67,7 +81,7 @@ PARENT_ABI = {  # the C interfaces of the parent commit's sources
     "quant_act": ("quant_act.cu", "mnc_quant_act", [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P]),
 }
 QUANT_ACT_PARTIALS = 2048  # the first version's partial maxima (its kMaxPartials)
-KINDS = ("nms", "roi_warp_bwd", "paste", "block1", "gemm_s8", "quant_act")
+KINDS = ("roi_warp", "nms", "roi_warp_bwd", "paste", "block1", "gemm_s8", "quant_act")
 
 
 def load(source: Path, abi, flags=()):
@@ -113,6 +127,49 @@ def _sources(args, name, flags_list, extra):
     for flags in [""] + flags_list:
         out.append((flags, _build.CSRC / _build.KERNEL_ABI[name][0], shlex.split(flags)))
     return out
+
+
+def roi_warp_callers(args):
+    """{label: f(features, rois, out_hw, scale) -> (B, N, PH, PW, C)}: the
+    first version as its wrapper drove it (a grid of (PH, N, B) blocks),
+    today's source through ``kernels._roi_warp`` under its plan and under
+    each ``--roi-warp-plan``."""
+    from mnc_tpu_torch.kernels import _roi_warp, plan_roi_warp
+
+    def make_parent(fn):
+        def call(f, rois, out_hw, scale):
+            b, h, w, c = f.shape
+            n = rois.shape[1]
+            out = torch.empty((b, n, *out_hw, c), dtype=f.dtype, device=f.device)
+            _ok(fn(f.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c, n, *out_hw, scale,
+                   0 if f.dtype == torch.float32 else 1, _stream()), "roi_warp")
+            return out
+        return call
+
+    def make(fn, overrides=None):
+        def call(f, rois, out_hw, scale):
+            plan = None
+            if overrides:
+                b, h, w, c = f.shape
+                plan = plan_roi_warp(b, rois.shape[1], c, f.dtype, tuple(out_hw), (h, w),
+                                     **overrides)
+            return _roi_warp(fn, f, rois, out_hw, scale, plan)
+        return call
+
+    callers = {}
+    parent = _parent(args, "roi_warp")
+    if parent:
+        callers["parent (a block per output row)"] = make_parent(
+            load(parent, PARENT_ABI["roi_warp"]))
+    abi = _build.KERNEL_ABI["roi_warp"]
+    for suffix, src, flags in _sources(args, "roi_warp", args.roi_warp_variant,
+                                       args.roi_warp_source):
+        callers[f"map slabs staged {suffix}".strip()] = make(load(src, abi, flags))
+    for spec in args.roi_warp_plan:
+        overrides = {k: int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
+        callers[f"map slabs staged, plan {spec}"] = make(load(_build.CSRC / abi[0], abi),
+                                                         overrides)
+    return callers
 
 
 def nms_callers(args):
@@ -330,10 +387,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parent-csrc", default=None)
     ap.add_argument("--only", default=",".join(KINDS),
                     help=f"comma-separated subset of {','.join(KINDS)}")
-    for kind in ("nms", "bwd", "paste", "block1", "gemm-s8"):
+    for kind in ("roi-warp", "nms", "bwd", "paste", "block1", "gemm-s8"):
         ap.add_argument(f"--{kind}-variant", action="append", default=[])
-    for kind in ("bwd", "paste", "block1", "gemm-s8"):
+    for kind in ("roi-warp", "bwd", "paste", "block1", "gemm-s8"):
         ap.add_argument(f"--{kind}-source", action="append", default=[], metavar="LABEL=PATH")
+    ap.add_argument("--roi-warp-plan", action="append", default=[],
+                    metavar="cell_chunks=N[,band_rows=N]")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", default=None, help="also write the report to this file")
     args = ap.parse_args(argv)
@@ -360,6 +419,55 @@ def main(argv=None) -> int:
                 prof = device_ms(lambda: call(fn))
                 cs.log(f"{kind} {shape} [{label}] device ms per kernel: {prof}")
                 report.setdefault("profile", {}).setdefault(kind, {})[f"{shape} {label}"] = prof
+
+    if "roi_warp" in only:
+        report["roi_warp"] = {}
+        callers = roi_warp_callers(args)
+        from mnc_tpu_torch.kernels import plan_roi_warp, roi_warp_l2_bytes
+        from mnc_tpu_torch.ops.roi_warp import roi_warp_plain
+        out_hw, s = cs.ROI_WARP_OUT_HW, cs.ROI_WARP_SCALE
+        cases = {}
+        for shape, (b, n, canvas, c) in cs.ROI_WARP_SHAPES.items():
+            h, w = canvas[0] // 16, canvas[1] // 16
+            feat = torch.randn(b, h, w, c, generator=g, device="cuda")
+            cases[shape] = (feat, torch.stack([cs.random_boxes(g, n, *canvas)
+                                               for _ in range(b)]))
+        cases[cs.ROI_WARP_PROPOSALS] = cs.main_path_rois()
+        for shape, (feat, rois) in cases.items():
+            b, h, w, c = feat.shape
+            for dt, tol_scale in cs.ROI_WARP_TOLERANCES.items():
+                f = feat.to(dt)
+                want = roi_warp_plain(f, rois, out_hw, s).float()
+                tol = tol_scale * f.float().abs().max().item()
+                first = None
+                for label, fn in callers.items():
+                    got = fn(f, rois, out_hw, s)
+                    err = (got.float() - want).abs().max().item()
+                    same = "" if first is None else f", bit-equal to the first build: " \
+                        f"{torch.equal(got, first)}"
+                    first = got if first is None else first
+                    cs.log(f"roi_warp {shape} {dt} [{label}]: max_abs_err {err:.3e} "
+                           f"(tolerance {tol:.3e}){same}")
+                    if not err <= tol:
+                        wrong.append(f"roi_warp [{label}] ({shape}, {dt}): off by {err:.3e}")
+                        cs.log(wrong[-1])
+                del want, first
+            f16 = feat.to(torch.bfloat16)
+            ms = there_and_back(callers, lambda fn: cs.cuda_graph_ms(
+                lambda: fn(f16, rois, out_hw, s)))
+            l2 = roi_warp_l2_bytes(rois, out_hw, s, (h, w), c, 2,
+                                   plan_roi_warp(b, rois.shape[1], c, f16.dtype, out_hw, (h, w)))
+            bms, by = cs.bound_ms(cs.nbytes(f16, rois) + rois.shape[1] * b * out_hw[0]
+                                  * out_hw[1] * c * 2, 8.0 * b * rois.shape[1] * out_hw[0]
+                                  * out_hw[1] * c)
+            for label in callers:
+                cs.log(f"roi_warp {shape} bf16 [{label}]: ms {ms[label]}")
+            cs.log(f"roi_warp {shape} bf16: bound {bms:.4f} ms ({by}); L2 tap bytes {l2}")
+            report["roi_warp"][shape] = {"ms": ms, "bound_ms": bms, "l2_tap_bytes": l2}
+            profiled("roi_warp", shape, callers, lambda fn: fn(f16, rois, out_hw, s))
+            del f16
+        del cases
+        torch.cuda.empty_cache()
 
     if "nms" in only:
         report["nms"] = {}

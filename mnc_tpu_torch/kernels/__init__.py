@@ -23,8 +23,10 @@ Nothing here falls back.
     quant_act_cuda       — kernel F, csrc/quant_act.cu (the int8 activation
                            quantization; no Pallas counterpart)
 
-Kernel E's planner (``plan_gemm_s8``) and weight packing
-(``pack_gemm_s8_weight``) are plain Python and torch, tested on the CPU.
+Kernel A's plan (``plan_roi_warp``) and taps (``roi_warp_taps``), kernel
+E's planner (``plan_gemm_s8``) and weight packing (``pack_gemm_s8_weight``)
+and kernel F's plan (``plan_quant_act``) are plain Python and torch, tested
+on the CPU.
 """
 
 from __future__ import annotations
@@ -69,25 +71,225 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def roi_warp_cuda(features: torch.Tensor, rois: torch.Tensor, out_hw,
-                  spatial_scale: float) -> torch.Tensor:
-    """features (B, H, W, C) f32/bf16, rois (B, N, 4) f32 → (B, N, PH, PW, C)."""
+ROI_WARP_THREADS = 1024  # csrc/roi_warp.cu kThreads
+ROI_WARP_ROIS = 16  # kRoIs: RoIs whose tap tables a block builds at once
+ROI_WARP_MAX_BLOCKS = 1  # kMinBlocks: blocks an SM its registers allow
+ROI_WARP_CELL_CHUNKS = (8, 4, 2, 1)  # 16-byte chunks of a staged cell (its channel slab)
+H100_SMEM_PER_SM = 233472  # shared memory of an SM; each block also holds 1 KB
+H100_SMEM_PER_BLOCK = 232448  # the largest dynamic shared memory a block may opt into
+SMEM_BLOCK_RESERVE = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class RoIWarpPlan:
+    """How kernel A covers one call: ``units`` work units (image, chunk of
+    ``chunk`` RoIs, slab of ``cell_chunks`` 16-byte chunks of channels), the
+    slab fastest, each image's RoIs cut into ``chunks`` chunks; ``grid``
+    persistent blocks of ``ROI_WARP_THREADS`` threads, block g taking units
+    g, g + grid, ...  A unit stages its map slab in ``bands`` bands of
+    ``band_rows`` rows (and one row of overlap), in ``smem`` bytes of
+    dynamic shared memory, ``blocks_per_sm`` blocks an SM."""
+    n: int
+    h: int
+    w: int
+    cell_chunks: int
+    slab: int  # channels of a slab
+    slabs: int
+    band_rows: int
+    bands: int
+    chunks: int
+    chunk: int
+    units: int
+    grid: int
+    smem: int
+    blocks_per_sm: int
+
+    def work(self):
+        """(block, image, RoI, slab) of every (RoI, slab) item, in the
+        kernel's order (``roi_warp_fwd_kernel``)."""
+        for g in range(self.grid):
+            for unit in range(g, self.units, self.grid):
+                bc, slab = divmod(unit, self.slabs)
+                img, h = divmod(bc, self.chunks)
+                for roi in range(h * self.chunk, min(self.n, (h + 1) * self.chunk)):
+                    yield g, img, roi, slab
+
+    def staged_bytes(self) -> int:
+        """The bytes of map cells the blocks copy from L2 into shared memory:
+        the map slab of every unit, each band's rows and one of overlap."""
+        rows = sum(min(self.band_rows + 1, self.h - y) for y in range(0, self.h, self.band_rows))
+        return self.units * rows * self.w * self.cell_chunks * 16
+
+
+def roi_warp_smem(cell_chunks: int, band_rows: int, map_hw, out_hw) -> int:
+    """Kernel A's dynamic shared memory (csrc/roi_warp.cu ``smem_bytes``):
+    the staged map band (``band_rows`` + 1 rows, at most H, of W cells) and
+    the tap tables of ``ROI_WARP_ROIS`` RoIs."""
+    (h, w), (ph, pw) = map_hw, out_hw
+    return min(band_rows + 1, h) * w * cell_chunks * 16 + ROI_WARP_ROIS * (ph + pw) * 16
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_roi_warp(b: int, n: int, c: int, dtype: torch.dtype, out_hw, map_hw, sms: int = 132,
+                  smem_per_sm: int = H100_SMEM_PER_SM,
+                  smem_per_block: int = H100_SMEM_PER_BLOCK,
+                  cell_chunks: int = 8, band_rows: int | None = None) -> RoIWarpPlan:
+    """Kernel A's plan for features (b, H, W, c) of ``dtype`` (f32 or
+    bf16), b x n RoIs and ``out_hw`` bins on a card of ``sms`` SMs.
+
+    A staged cell holds the widest of 8, 4, 2, 1 16-byte chunks (at most
+    ``cell_chunks``) that divides c's vectors and with which a whole map
+    slab fits a block's shared memory: 64 bytes (32 bf16 or 16 f32
+    channels) for a 40 x 64 map at c = 512 or 1024.  A map too large even
+    at 16 bytes a cell is staged in bands of as many rows as fit (one more
+    row of overlap each); ``band_rows``, where given, sets the band and the
+    widest cell that it fits.  As many blocks an SM as the shared memory and
+    ``ROI_WARP_MAX_BLOCKS`` allow; each image's RoIs cut into as many equal
+    chunks as leave every one of those blocks an (image, chunk, slab) unit
+    (the slabs of a chunk then run side by side, so the 16-byte pieces of
+    an output bin reach L2 together), at most that many blocks."""
+    ph, pw = out_hw
+    h, w = map_hw
+    vec = 16 // dtype.itemsize
+    if c % vec:
+        raise ValueError(f"channels ({c}) must be a multiple of {vec}")
+    if min(ph, pw, h, w) < 1:
+        raise ValueError(f"{out_hw} bins on a {map_hw} map")
+    widths = [k for k in ROI_WARP_CELL_CHUNKS if k <= cell_chunks and (c // vec) % k == 0]
+    fits = [k for k in widths if roi_warp_smem(k, h, map_hw, out_hw) <= smem_per_block]
+    if band_rows is not None:  # given: the widest cell whose band of that many rows fits
+        cpc = next((k for k in widths
+                    if roi_warp_smem(k, band_rows, map_hw, out_hw) <= smem_per_block), 0)
+        if not cpc or not 1 <= band_rows <= h:
+            raise ValueError(f"no band of {band_rows} rows of a {map_hw} map fits")
+    elif fits:
+        cpc, band_rows = fits[0], h
+    else:  # bands of one-chunk cells
+        cpc = widths[-1]
+        band_rows = (smem_per_block - roi_warp_smem(cpc, 0, (0, w), out_hw)) // (w * cpc * 16) - 1
+        if band_rows < 1:
+            raise ValueError(f"kernel A cannot stage two rows of a {map_hw} map in "
+                             f"{smem_per_block} bytes of shared memory")
+    smem = roi_warp_smem(cpc, band_rows, map_hw, out_hw)
+    slabs = c // (vec * cpc)
+    if h * w * c >= 2 ** 31 or b * n * ph * pw >= 2 ** 31:
+        raise ValueError("kernel A takes maps and outputs of fewer than 2^31 elements")
+    per_sm = max(1, min(ROI_WARP_MAX_BLOCKS, smem_per_sm // (smem + SMEM_BLOCK_RESERVE)))
+    # each image's RoIs in as many chunks as leave every SM a unit, none empty
+    chunks = max(1, min(n, per_sm * sms // max(1, b * slabs)))
+    chunk = max(1, -(-n // chunks))
+    chunks = max(1, -(-n // chunk))
+    units = b * chunks * slabs
+    return RoIWarpPlan(n=n, h=h, w=w, cell_chunks=cpc, slab=vec * cpc, slabs=slabs,
+                       band_rows=band_rows, bands=-(-h // band_rows), chunks=chunks,
+                       chunk=chunk, units=units, grid=max(1, min(units, per_sm * sms)),
+                       smem=smem, blocks_per_sm=per_sm)
+
+
+def roi_warp_taps(rois: torch.Tensor, out_size: int, spatial_scale: float, size: int,
+                  axis: int):
+    """Kernel A's taps along one axis (``taps(bin_center(...))``): for
+    (..., N, 4) rois, (i0, w0, w1) of shape (..., N, P): the floor of each
+    bin center and the hat weights of taps i0 and i0 + 1, 0 outside
+    [0, size).  The f32 arithmetic is the kernel's, operation by
+    operation."""
+    from mnc_tpu_torch.ops.roi_warp import bin_centers
+
+    cen = bin_centers(rois, out_size, spatial_scale, axis)
+    f = torch.floor(cen)
+    i0 = f.to(torch.int64)
+    zero = cen.new_zeros(())
+    a = torch.maximum(zero, 1.0 - (cen - f).abs())
+    b = torch.maximum(zero, 1.0 - (cen - (f + 1.0)).abs())
+    w0 = torch.where((i0 >= 0) & (i0 < size), a, zero)
+    w1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < size), b, zero)
+    return i0, w0, w1
+
+
+def _used_lines(i0: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, size: int):
+    """(..., size) bool: the lines (rows or columns) that a tap of nonzero
+    weight falls on."""
+    used = torch.zeros((*i0.shape[:-1], size + 1), dtype=torch.bool, device=i0.device)
+    for idx, wt in ((i0, w0), (i0 + 1, w1)):
+        on = wt != 0
+        used.scatter_(-1, torch.where(on, idx, size).clamp(0, size), on)  # line size: a sink
+    return used[..., :size]
+
+
+def roi_warp_l2_bytes(rois: torch.Tensor, out_hw, spatial_scale: float, map_hw, c: int,
+                      itemsize: int, plan: RoIWarpPlan | None = None) -> dict:
+    """The bytes of feature taps that kernel A designs read through L2 for
+    these (B, N, 4) rois, computed from the boxes and shapes: ``staged``,
+    this kernel's map slabs (``plan.staged_bytes``, when a plan is given);
+    ``per_roi``, each RoI's used rows x used columns, once (a design that
+    stages per RoI); for the first port's design (a block per RoI and
+    output row, four 16-byte loads per output vector), ``old_every_tap``
+    (every tap of nonzero weight, each bin on its own) and ``old_per_row``
+    (each block's distinct cells once, were L1 to catch every re-read
+    inside a block)."""
+    ph, pw = out_hw
+    h, w = map_hw
+    yi, wy0, wy1 = roi_warp_taps(rois, ph, spatial_scale, h, 0)
+    xi, wx0, wx1 = roi_warp_taps(rois, pw, spatial_scale, w, 1)
+    rows = _used_lines(yi, wy0, wy1, h).sum(-1)
+    cols = _used_lines(xi, wx0, wx1, w).sum(-1)
+    row_taps = ((wy0 != 0).to(torch.int64) + (wy1 != 0).to(torch.int64)).sum(-1)  # (B, N)
+    col_taps = ((wx0 != 0).to(torch.int64) + (wx1 != 0).to(torch.int64)).sum(-1)
+    line = c * itemsize
+    out = {"per_roi": int((rows * cols).sum()) * line,
+           "old_every_tap": int((row_taps * col_taps).sum()) * line,
+           "old_per_row": int((row_taps * cols).sum()) * line}
+    if plan is not None:
+        out["staged"] = plan.staged_bytes()
+    return out
+
+
+def _roi_warp(fn, features: torch.Tensor, rois: torch.Tensor, out_hw, spatial_scale: float,
+              plan: RoIWarpPlan | None = None) -> torch.Tensor:
+    """Checks, plans and launches kernel A through the C function ``fn`` (or
+    the kernel of that name); ``plan`` overrides :func:`plan_roi_warp`'s."""
     _check(features, "features", (torch.float32, torch.bfloat16), 4)
     _check(rois, "rois", (torch.float32,), 3, features.device)
     b, h, w, c = features.shape
     if rois.shape[0] != b or rois.shape[2] != 4:
         raise ValueError(f"rois shape {tuple(rois.shape)} does not match "
                          f"features {tuple(features.shape)}")
-    vec = 4 if features.dtype == torch.float32 else 8
+    vec = 16 // features.element_size()
     if c % vec:
         raise ValueError(f"channels ({c}) must be a multiple of {vec}")
+    if h * w * c >= 2 ** 31:
+        raise ValueError(f"a feature map of {(h, w, c)} has 2^31 elements or more")
     ph, pw = out_hw
     n = rois.shape[1]
-    out = torch.empty((b, n, ph, pw, c), dtype=features.dtype, device=features.device)
-    _launch("roi_warp", features.device, features.data_ptr(), rois.data_ptr(),
-            out.data_ptr(), b, h, w, c, n, ph, pw, float(spatial_scale),
-            0 if features.dtype == torch.float32 else 1, _stream(features))
-    roi_warp_cuda.launches += 1
+    dev = features.device
+    out = torch.empty((b, n, ph, pw, c), dtype=features.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    if features.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("features and the output must be 16-byte aligned")
+    if plan is None:
+        plan = plan_roi_warp(b, n, c, features.dtype, (ph, pw), (h, w), _n_sms(dev),
+                             _smem_per_sm(dev), _smem_per_block(dev))
+    if isinstance(fn, str):
+        fn = kernel_function(fn)
+    with _on(dev):
+        err = fn(features.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c, n, ph, pw,
+                 float(spatial_scale), 0 if features.dtype == torch.float32 else 1,
+                 plan.cell_chunks, plan.band_rows, plan.chunks, plan.grid, plan.smem,
+                 _stream(features))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel 'roi_warp' failed to launch: CUDA error {err} ({plan})")
+    return out
+
+
+def roi_warp_cuda(features: torch.Tensor, rois: torch.Tensor, out_hw,
+                  spatial_scale: float) -> torch.Tensor:
+    """features (B, H, W, C) f32/bf16, rois (B, N, 4) f32 → (B, N, PH, PW, C).
+    One launch of a persistent grid planned by :func:`plan_roi_warp`; an
+    empty output launches nothing and is not counted."""
+    out = _roi_warp("roi_warp", features, rois, out_hw, spatial_scale)
+    if out.numel():
+        roi_warp_cuda.launches += 1
     return out
 
 
@@ -451,7 +653,6 @@ QUANT_ACT_MAX_BLOCKS = 1024  # kMaxBlocks: partial maxima of a per-tensor grid
 QUANT_ACT_SCRATCH_WORDS = 64 + QUANT_ACT_MAX_BLOCKS  # kSyncWords + kMaxBlocks
 QUANT_ACT_SMEM_RESERVE = 1024  # bytes a block keeps beside what it holds (static shared memory)
 QUANT_ACT_MIN_UNITS = 2  # per tensor: at least this many 16-byte units a thread
-H100_SMEM_PER_BLOCK = 232448  # the largest dynamic shared memory a block may opt into
 
 
 @dataclasses.dataclass(frozen=True)
@@ -549,6 +750,11 @@ def plan_quant_act(shape, per_row: bool, dtype: torch.dtype = torch.bfloat16, sm
     return QuantPlan(per_row=True, vec=vec, unit=unit, on_chip=held == ku, grid=grid,
                      threads=threads, smem=groups * held * unit * itemsize, chunk=ku,
                      held=held, rows_per_block=groups, threads_per_row=threads // groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_per_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).shared_memory_per_multiprocessor
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,7 +28,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # kernel name -> (source, C function, argtypes)
 KERNEL_ABI = {
     "roi_warp": ("roi_warp.cu", "mnc_roi_warp_fwd",
-                 [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+                 [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P]),
     "roi_warp_bwd": ("roi_warp_bwd.cu", "mnc_roi_warp_bwd",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "nms": ("nms.cu", "mnc_nms_keep", [_P, _P, _P, _I, _I, _F, _I, _P]),

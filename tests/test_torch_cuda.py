@@ -200,6 +200,32 @@ def test_roi_warp_kernel_rejects_bad_inputs(gen):
                               torch.zeros(1, 2, 4, device="cuda"), (2, 2), 0.25)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("band_rows", [1, 5, 11])
+def test_roi_warp_kernel_bands_match_one_band(gen, dtype, band_rows):
+    """Kernel A's path for maps too large for shared memory (the map staged
+    in bands of rows) forced on a small map: bit for bit the one-band launch,
+    and the plain version within the tolerance."""
+    feat = torch.randn(2, 12, 16, 64, generator=gen, device="cuda").to(dtype)
+    rois = _boxes(gen, (2, 37), 16 * 12, 16 * 16, hi=16 * 12)
+    plan = kernels.plan_roi_warp(2, 37, 64, dtype, (7, 5), (12, 16), band_rows=band_rows)
+    assert plan.bands == -(-12 // band_rows)
+    got = kernels._roi_warp("roi_warp", feat, rois, (7, 5), 1.0 / 16, plan)
+    assert torch.equal(got, kernels.roi_warp_cuda(feat, rois, (7, 5), 1.0 / 16))
+    want = roi_warp_plain(feat, rois, (7, 5), 1.0 / 16)
+    scale = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7
+    assert (got.float() - want.float()).abs().max().item() <= \
+        scale * feat.float().abs().max().item()
+
+
+def test_roi_warp_kernel_empty_output_launches_nothing(gen):
+    feat = torch.randn(2, 12, 16, 64, generator=gen, device="cuda")
+    before = kernels.roi_warp_cuda.launches
+    out = kernels.roi_warp_cuda(feat, torch.zeros(2, 0, 4, device="cuda"), (14, 14), 1.0 / 16)
+    assert tuple(out.shape) == (2, 0, 14, 14, 64)
+    assert kernels.roi_warp_cuda.launches == before
+
+
 @pytest.mark.parametrize("p,k", [(1, 1), (3, 63), (2, 65), (5, 130), (1, 2000)])
 @pytest.mark.parametrize("thresh,top_n", [(0.3, 0), (0.7, 0), (0.5, 10)])
 def test_nms_kernel_matches_plain(gen, p, k, thresh, top_n):
