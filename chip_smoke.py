@@ -33,11 +33,15 @@ Phases, each printing its lines before the two JSON lines at the end:
    quantization: its bf16 division first proved by exhaustion on 2.13e9
    pairs) at the input of every int8 layer of both trunks against
    ``quant_act`` in bf16 and f32, on random, edge-case and all-zero data,
-   with one CUDA launch a call, then timed (CUDA events, after warm-up)
+   with one CUDA launch a call, and F's two halves (the scale alone, the
+   quantization under a given scale: the spatial trunk's) over the two
+   halves of H of every per-tensor input, composed bit for bit F on the
+   whole, one launch each, then timed (CUDA events, after warm-up)
    beside the plain version and, where one PyTorch call computes the same
    function, that call.  NMS, the
-   paste (N = 400, the serving request, and N = 100), block 1 (B = 2 and
-   B = 4) and E are timed and bounded per shape.
+   paste (N = 400, the serving request, and N = 100), block 1 (B = 2,
+   B = 4 and the spatial trunk's slabs of 322 and 324 rows), E and F's
+   halves are timed and bounded per shape.
 4. main paths, each with the launch counters zeroed just before and read
    just after:
    a. serving — batched 5-stage VGG-16 at full width (640×1024 canvas, FC
@@ -154,8 +158,13 @@ Phases, each printing its lines before the two JSON lines at the end:
       model: 2}, fc6's 25088x4096 split in two, f32 3-stage) against the
       plain step (losses within 1e-5 relative, the gathered checkpoint
       within the bound), the spatial trunk (2 x 320 rows of 640x1024, f32)
-      against ``model.features`` (1e-4 of the max), and ``train_net --dp``
-      and ``test_net --dp`` as 2 ranks (the detections equal world 1's).
+      against ``model.features`` (1e-4 of the max), through kernel D (bf16
+      ``FUSED_BLOCK1``, path ``spatial_block1``: block 1's gathered rows
+      bit for bit D on the whole canvas, the features within 1e-2 of the
+      max) and under int8 (VGG-16, kernels E and F's halves, path
+      ``spatial_int8``: bit for bit the unsharded int8 trunk), and
+      ``train_net --dp`` and ``test_net --dp`` as 2 ranks (the detections
+      equal world 1's).
       ``--only parallel`` builds the kernels and runs this phase alone;
    l. the train -> detect -> mAP^r tools and the last ported modules:
       ``tools.e2e_synth_demo --full-scale`` on VGG-16 (640x1024, FC 4096,
@@ -178,8 +187,17 @@ Phases, each printing its lines before the two JSON lines at the end:
       ``roi_pool`` on a VGG conv5 map (4 x 40 x 64 x 512, 76 RoIs an
       image, 7x7) and the whole-class ``mask_voting`` / ``box_voting`` on
       one class's candidates, card against CPU; ``rle_encode`` of one
-      640x1024 mask, the compiled host helper against numpy.
-      ``--only tools`` builds the kernels and runs this phase alone.
+      640x1024 mask, the compiled host helper against numpy;
+   m. the study tools on l.'s trained npz: ``tools.reference_parity
+      --dry-run`` with random weights and with ``--fabricate proto`` (each
+      through its ``test_net`` subprocess: PARITY: PASS), then the
+      fabricated run's ``test_net`` argv in this process (the same mAP^r;
+      path ``parity_test_net``); ``tools.workingset_study`` at full width (4
+      images, pre-NMS 512 and 6000, post-NMS 304; path ``workingset``),
+      ``tools.crowd_study`` at full width (2 images of 20-30 instances,
+      ``--only 16,0``; path ``crowd``) and ``tools.mask_fidelity_study
+      --trials 50``.
+      ``--only tools`` builds the kernels and runs phases l and m alone.
 5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
    of phase 3, per shape where there are several; bounds from this run's
    inputs), then ``{"ok": true, ...}``.
@@ -584,6 +602,11 @@ def _check_roi_warp_bwd(g, c, only_sets):
                 library_ms=l_ms, ms_by_box_set=set_ms)
 
 
+# kernel D's input on a rank of the spatial trunk (phase 4k): its rows of a 640x1024
+# canvas and two rows of each inner neighbour, at an edge rank of 2 or a middle rank
+SPATIAL_SLABS = {"edge": (1, 322, 1024, 3), "middle": (1, 324, 1024, 3)}
+
+
 def check_block1(g):
     """Kernel D against block1_plain: only the order of the f32 sums may
     differ, so at least 0.999 of the elements must be bit-identical and every
@@ -591,7 +614,10 @@ def check_block1(g):
     bias add, plus the echo of a conv1_1 output that rounded the other way);
     the border rows and columns are held on their own; at the full canvas, at
     a small shape whose tiles hang over the edges and on a constant image.
-    Then timed at the train step's B = 2 and the serving request's B = 4."""
+    Also at the slabs of the spatial trunk (``SPATIAL_SLABS``: a rank's 320
+    rows of a 640x1024 canvas and two rows of halo on one side, or four on
+    both).  Then timed at the train step's B = 2, the serving request's B = 4
+    and both slabs."""
     from mnc_tpu_torch.ops.block1 import (block1_plain, block1_tolerance, conv_relu_plain,
                                           fused_block1)
     import torch.nn.functional as F
@@ -603,7 +629,9 @@ def check_block1(g):
     worst = 0.0
     for label, shape, const in (("full canvas", (2, *CANVAS, 3), None),
                                 ("ragged tiles", (3, 40, 50, 3), None),
-                                ("constant image", (1, 24, 18, 3), 7.0)):
+                                ("constant image", (1, 24, 18, 3), 7.0),
+                                ("spatial edge slab", SPATIAL_SLABS["edge"], None),
+                                ("spatial middle slab", SPATIAL_SLABS["middle"], None)):
         x = (torch.randn(shape, generator=g, device="cuda") * 50 if const is None
              else torch.full(shape, const, device="cuda"))
         got = fused_block1(x, w1, b1, w2, b2).float()
@@ -631,8 +659,10 @@ def check_block1(g):
     cb1, cb2 = b1.to(bf), b2.to(bf)
     w_bytes = (27 * 64 + 576 * 64 + 128) * 2
     shapes = {}
-    for bsz in (2, 4):
-        x = torch.randn(bsz, *CANVAS, 3, generator=g, device="cuda") * 50
+    timed = [(f"B={bsz}", (bsz, *CANVAS)) for bsz in (2, 4)]
+    timed += [(f"{k} slab", v[:3]) for k, v in SPATIAL_SLABS.items()]
+    for label, (bsz, hh, ww) in timed:
+        x = torch.randn(bsz, hh, ww, 3, generator=g, device="cuda") * 50
         k_ms = cuda_ms(lambda: fused_block1(x, w1, b1, w2, b2), iters=10)
         p_ms = cuda_ms(lambda: block1_plain(x, w1, b1, w2, b2), iters=3, warmup=1)
         # the library yardstick: the trunk's unfused block 1 (cuDNN, bf16, channels-last)
@@ -645,15 +675,14 @@ def check_block1(g):
         l_ms = cuda_ms(unfused, iters=10)
         lib_diff = (unfused().permute(0, 2, 3, 1).float()
                     - fused_block1(x, w1, b1, w2, b2).float()).abs().max().item()
-        hh, ww = CANVAS
         out_bytes = bsz * (hh // 2) * (ww // 2) * 64 * 2
         bms, by = bound_ms(bsz * hh * ww * 3 * 2 + w_bytes + out_bytes,
                            2.0 * bsz * hh * ww * 64 * (27 + 576), BF16_FLOP_PER_S)
-        log(f"kernel D block1 B={bsz} {CANVAS}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-            f"library_ms(unfused cuDNN block) {l_ms:.4f} (unfused vs kernel max diff "
-            f"{lib_diff:.3e}) bound_ms {bms:.4f} ({by}, {bms / k_ms:.0%} of it)")
-        shapes[f"B={bsz}"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms,
-                                  bound_by=by)
+        log(f"kernel D block1 {label} {(bsz, hh, ww, 3)}: kernel_ms {k_ms:.4f} plain_ms "
+            f"{p_ms:.4f} library_ms(unfused cuDNN block) {l_ms:.4f} (unfused vs kernel max "
+            f"diff {lib_diff:.3e}) bound_ms {bms:.4f} ({by}, {bms / k_ms:.0%} of it)")
+        shapes[label] = dict(shape=[bsz, hh, ww, 3], ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                             bound_ms=bms, bound_by=by)
         del x, xn
     main = shapes["B=2"]
     return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
@@ -1154,15 +1183,23 @@ def _quant_edges(x, per_row):
 
 def device_activities(calls) -> dict:
     """{name: count} of the device's activities (kernels, memsets, copies)
-    while ``calls`` run, one after another (torch.profiler)."""
+    while ``calls`` run, one after another (torch.profiler).  The calls run
+    twice: first in a warm-up step, whose events are discarded, then in the
+    recorded step.  On an H100 a trace that starts on the calls themselves,
+    in a process that has been profiled before, lost one kernel of the
+    calls (F's halves: 15 of 16 launches of one of them); the warmed-up
+    trace counts every one."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for call in calls:
-            call()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):  # warm-up, then recorded
+            for call in calls:
+                call()
+            torch.cuda.synchronize()
+            prof.step()
     return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
@@ -1197,6 +1234,7 @@ def check_quant_act(g):
     dev = torch.device("cuda")
     sms, smem = kernels._n_sms(dev), kernels._smem_per_block(dev)
     shapes, timed = {}, {}
+    halves_ok = True
     for (shape, per_row), layer in sorted(int8_layer_inputs().items(),
                                           key=lambda kv: -int(np.prod(kv[0][0]))):
         label = f"{layer} {shape} per {'row' if per_row else 'tensor'}"
@@ -1211,6 +1249,9 @@ def check_quant_act(g):
                 gq, gs = kernels.quant_act_cuda(x, per_row)
                 wq, ws = quant_act(x, per_row)
                 ok = ok and torch.equal(gq, wq) and torch.equal(gs, ws)
+                if not per_row:  # F's two halves over the two halves of H
+                    hq, hs = _quant_halves(x)
+                    halves_ok = halves_ok and torch.equal(hq, gq) and torch.equal(hs, gs)
             if dtype is BF:
                 xr = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
                 _, p_ms = _plain_ms(lambda: quant_act(xr, per_row))
@@ -1221,6 +1262,8 @@ def check_quant_act(g):
                 twice = plan.bytes_read_twice(xr.numel(), xr.element_size())
                 floor = bound_ms(nbytes(xr, q, sc) + twice, 0.0)[0]
                 timed[label] = (xr, per_row)
+                if not per_row:
+                    halves = _time_halves(xr, q, sc)
                 del q, sc
             del x, gq, gs, wq, ws
         where = "on chip" if plan.on_chip else f"re-read {twice / 1e6:.1f} MB"
@@ -1234,8 +1277,20 @@ def check_quant_act(g):
                              bound_ms=bms, bound_by=by, on_chip=plan.on_chip,
                              reread_mb=twice / 1e6, reread_floor_ms=floor, grid=plan.grid,
                              smem=plan.smem, bit_identical=ok)
+        if not per_row:
+            shapes[label]["halves"] = halves
+            log(f"kernel F halves {label}: the max of the scales of the two halves of H and "
+                f"each half quantized under it bit for bit F on the whole (bf16 and f32, "
+                f"random, edge cases, zeros): {halves_ok}; act_scale_ms(bf16, whole) "
+                f"{halves['scale_ms']:.4f} bound_ms {halves['scale_bound_ms']:.4f} "
+                f"({halves['scale_bound_ms'] / halves['scale_ms']:.0%}); quant_with_scale_ms "
+                f"{halves['given_ms']:.4f} plain_ms {halves['given_plain_ms']:.4f} bound_ms "
+                f"{halves['given_bound_ms']:.4f} ({halves['given_bound_by']}, "
+                f"{halves['given_bound_ms'] / halves['given_ms']:.0%} of it)")
         if not ok:
             raise AssertionError(f"quant_act kernel differs from its plain version ({label})")
+        if not halves_ok:
+            raise AssertionError(f"kernel F's halves do not compose to F ({label})")
     calls = [lambda x=x, r=r: kernels.quant_act_cuda(x, r) for x, r in timed.values()]
     acts = device_activities(calls)
     kinds = ("quant_tensor_kernel", "quant_rows_kernel")
@@ -1244,13 +1299,51 @@ def check_quant_act(g):
         raise AssertionError(f"kernel F: not one launch a call: {acts} for {len(calls)} calls")
     for r in shapes.values():
         r["launches_per_call"] = 1
-    del timed, calls
+    # the halves: one launch each, no memset
+    tensors = [x for x, r in timed.values() if not r]
+    one = torch.ones((), device="cuda")
+    calls = [c for x in tensors for c in (lambda x=x: kernels.act_scale_cuda(x),
+                                          lambda x=x: kernels.quant_with_scale_cuda(x, one))]
+    acts = device_activities(calls)
+    kinds = ("scale_kernel", "quant_given_kernel")
+    log(f"kernel F halves: CUDA launches of {len(calls)} bf16 calls, each half at each "
+        f"per-tensor shape: {acts}")
+    if sum(acts.values()) != len(calls) or not all(any(k in a for k in kinds) for a in acts):
+        raise AssertionError(f"kernel F halves: not one launch a call: {acts}")
+    del timed, calls, tensors, one
     torch.cuda.empty_cache()
     log(f"kernel F checked in {time.perf_counter() - t_check:.1f} s")
     main = next(r for label, r in shapes.items() if r["shape"] == [4, *CANVAS, 64])
     return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
-                division_proof=proof, shapes=shapes)
+                division_proof=proof, halves=main["halves"], shapes=shapes)
+
+
+def _quant_halves(x):
+    """Kernel F's halves over the two halves of x's H (dim 1): the max of
+    their scales, and each half quantized under it, concatenated."""
+    from mnc_tpu_torch import kernels
+
+    h = x.shape[1] // 2
+    parts = [x[:, :h].contiguous(), x[:, h:].contiguous()]
+    scale = torch.stack([kernels.act_scale_cuda(p) for p in parts]).max()
+    return torch.cat([kernels.quant_with_scale_cuda(p, scale) for p in parts], dim=1), scale
+
+
+def _time_halves(x, q, scale) -> dict:
+    """F's halves on the whole of x (bf16): the scale alone (bound: x read
+    once) and the quantization under ``scale`` (bound: x read once, the
+    int8 written once), beside the plain ``quant_with_scale``."""
+    from mnc_tpu_torch import kernels
+    from mnc_tpu_torch.ops.quant import quant_with_scale
+
+    s_ms = cuda_ms(lambda: kernels.act_scale_cuda(x), iters=10)
+    q_ms = cuda_ms(lambda: kernels.quant_with_scale_cuda(x, scale), iters=10)
+    _, p_ms = _plain_ms(lambda: quant_with_scale(x, scale))
+    sb, sby = bound_ms(nbytes(x, scale), 0.0)
+    qb, qby = bound_ms(nbytes(x, q), 0.0)
+    return dict(scale_ms=s_ms, scale_bound_ms=sb, scale_bound_by=sby, given_ms=q_ms,
+                given_plain_ms=p_ms, given_bound_ms=qb, given_bound_by=qby)
 
 
 def _check_serving(out, arch, b, k):
@@ -3218,6 +3311,9 @@ def small_real_test_net_agrees(tmp, data, segdb):
 # --------------------------------------------------------------------------- #
 
 PAR_SEED = 21  # the draws of the 2-rank steps
+# the spatial trunks that run kernels: D (bf16, NET.FUSED_BLOCK1) and E and F (int8 VGG-16)
+SPATIAL_KERNEL_ARCHS = {"block1": dict(compute_dtype=torch.bfloat16, fused_block1=True),
+                        "int8": dict(compute_dtype=torch.bfloat16, int8_inference=True)}
 
 
 def _par_setup(kind):
@@ -3250,9 +3346,10 @@ def parallel_worker(rank, world, init, out_dir) -> int:
     """One of the 2 gloo ranks sharing the card (``--parallel-worker``): the
     DP step (1 image a rank), the TP step ({data: 1, model: 2}: fc6's
     25088x4096 split in two) with its gathered checkpoint, and the spatial
-    trunk (2 x 320 rows of a 640x1024 canvas).  Writes its results (times,
-    metrics, launches), rank 0 the DP step's checkpoint, every rank its
-    feature rows."""
+    trunk (2 x 320 rows of a 640x1024 canvas) in f32, through kernel D
+    (bf16, ``FUSED_BLOCK1``; block 1 alone too) and under int8 (kernels E
+    and F's halves).  Writes its results (times, metrics, launches), rank 0
+    the DP step's checkpoint, every rank its feature rows."""
     import torch.distributed as dist
 
     from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -3260,7 +3357,9 @@ def parallel_worker(rank, world, init, out_dir) -> int:
     from mnc_tpu_torch.parallel import (data_parallel_train_step, hybrid_parallel_train_step,
                                         init_distributed, make_mesh, shard_batch, shard_image,
                                         shard_train_state, spatial_trunk_features)
+    from mnc_tpu_torch.parallel.spatial import _Halo
     from mnc_tpu_torch.parallel.tensor import save_checkpoint as save_sharded
+    from mnc_tpu_torch.utils.blob import device_normalize
     from mnc_tpu_torch.utils.checkpoint import save_checkpoint
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3306,6 +3405,23 @@ def parallel_worker(rank, world, init, out_dir) -> int:
     fn(rows)  # warm-up: cuDNN's algorithm search
     feat = timed("spatial", lambda: fn(rows))
     np.save(os.path.join(out_dir, f"spatial_{dist.get_rank()}.npy"), feat.cpu().numpy())
+    del model, fn
+    # the spatial trunk through kernel D (bf16) and through kernels E and F (int8)
+    for name, kw in SPATIAL_KERNEL_ARCHS.items():
+        model = MNC(MNCArch(**kw), device="cuda", seed=0)
+        fn = spatial_trunk_features(model, mesh)
+        fn(rows)  # warm-up: cuDNN's algorithm search, E's packed weights
+        feat = timed(f"spatial_{name}", lambda: fn(rows))
+        np.save(os.path.join(out_dir, f"spatial_{name}_{dist.get_rank()}.npy"),
+                feat.float().cpu().numpy())
+        if name == "block1":  # block 1 alone: kernel D on this rank's slab
+            with torch.no_grad():
+                x = device_normalize(rows[None]).to(torch.bfloat16).permute(0, 3, 1, 2)
+                b1 = _Halo(mesh, "data").block1(model.trunk, x)
+            np.save(os.path.join(out_dir, f"spatial_block1_only_{dist.get_rank()}.npy"),
+                    b1.permute(0, 2, 3, 1)[0].float().cpu().numpy())
+        del model, fn
+        torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{dist.get_rank()}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
@@ -3417,6 +3533,60 @@ def dp_step_overhead(label):
     del state, steps
     torch.cuda.empty_cache()
     return med, n_bytes
+
+
+def spatial_kernel_paths(wdir, res, by_path) -> str:
+    """The 2-rank spatial trunks through the kernels against the unsharded
+    trunk on the card: under int8 (E and F's halves) the gathered features
+    bit for bit; through D (bf16) block 1's gathered rows bit for bit D on
+    the whole canvas, and the features, whose later layers are cuDNN
+    convolutions of other shapes (320 + 2 rows, no H padding), within 1e-2
+    of the map's max.  Adds the paths ``spatial_block1`` / ``spatial_int8``
+    (launches summed over the ranks) to ``by_path``; returns a report."""
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.utils.blob import device_normalize
+
+    parts = []
+    img = torch.from_numpy(_par_image()).cuda()[None]
+    for name, kw in SPATIAL_KERNEL_ARCHS.items():
+        path = f"spatial_{name}"
+        by_path[path] = {k: sum(r[path]["launches"][k] for r in res)
+                         for k in res[0][path]["launches"]}
+        model = MNC(MNCArch(**kw), device="cuda", seed=0)
+        with torch.no_grad():
+            whole = model.features(img)[0].float().cpu().numpy()
+            if name == "block1":
+                x = device_normalize(img).to(torch.bfloat16).permute(0, 3, 1, 2)
+                whole_b1 = model.trunk._block(0, x).permute(0, 2, 3, 1)[0].float().cpu().numpy()
+        del model
+        torch.cuda.empty_cache()
+        got = np.concatenate([np.load(os.path.join(wdir, f"{path}_{r}.npy")) for r in range(2)])
+        if got.shape != whole.shape:
+            raise AssertionError(f"2-rank {path}: {got.shape} against {whole.shape}")
+        d = float(np.abs(got - whole).max() / np.abs(whole).max())
+        same = float((got == whole).mean())
+        ms = " / ".join(f"{r[path]['ms']:.1f}" for r in res)
+        if name == "int8":
+            c = by_path[path]
+            if d != 0.0 or c["quant_act_cuda"] or not (c["act_scale_cuda"] and
+                                                        c["quant_with_scale_cuda"]
+                                                        and c["gemm_s8_cuda"]):
+                raise AssertionError(f"2-rank {path}: max diff {d:.1e} of the max from the "
+                                     f"unsharded int8 trunk (must be 0), launches {c}")
+            parts.append(f"spatial int8 VGG-16 (bf16, E and F's halves) {ms} ms, bit for bit "
+                         f"the unsharded int8 trunk")
+            continue
+        b1 = np.concatenate([np.load(os.path.join(wdir, f"spatial_block1_only_{r}.npy"))
+                             for r in range(2)])
+        d1 = float(np.abs(b1 - whole_b1).max())
+        if b1.shape != whole_b1.shape or d1 != 0.0 or d > 1e-2:
+            raise AssertionError(f"2-rank {path}: block 1 max |diff| {d1:.3e} from D on the "
+                                 f"whole canvas (must be 0), features {d:.1e} of the max "
+                                 f"(tolerance 1e-2)")
+        parts.append(f"spatial D trunk (bf16, slabs {tuple(SPATIAL_SLABS['edge'])}) {ms} ms, "
+                     f"block 1 bit for bit D on the whole canvas, features max diff {d:.1e} "
+                     f"of the map's max ({same:.6f} of the elements equal)")
+    return "; ".join(parts)
 
 
 def parallel_paths(device_label, tmp):
@@ -3570,6 +3740,7 @@ def parallel_paths(device_label, tmp):
     for name in ("dp", "tp", "spatial"):
         by_path[f"{name}_gloo"] = {k: sum(r[name]["launches"][k] for r in res)
                                    for k in res[0][name]["launches"]}
+    spatial_kernels = spatial_kernel_paths(wdir, res, by_path)
     log(f"2 gloo ranks sharing {device_label} ({sec:.1f} s for both processes, start-up and "
         f"model builds included; times are not a speed measure: two processes share one card "
         f"and gloo moves CUDA tensors through the host): DP step (1 image a rank, bf16) "
@@ -3579,8 +3750,9 @@ def parallel_paths(device_label, tmp):
         f"{res[1]['tp']['ms']:.1f} ms, losses {dt:.1e} relative from the plain step's "
         f"(tolerance 1e-5), gathered checkpoint: {stp}; spatial trunk (2 x 320 rows of "
         f"640x1024, f32) {res[0]['spatial']['ms']:.1f} / {res[1]['spatial']['ms']:.1f} ms, "
-        f"max diff {ds:.1e} of the map's max (tolerance 1e-4); launches "
-        f"dp {by_path['dp_gloo']}, tp {by_path['tp_gloo']}")
+        f"max diff {ds:.1e} of the map's max (tolerance 1e-4); {spatial_kernels}; launches "
+        f"dp {by_path['dp_gloo']}, tp {by_path['tp_gloo']}, spatial_block1 "
+        f"{by_path['spatial_block1']}, spatial_int8 {by_path['spatial_int8']}")
 
     # train_net --dp and test_net --dp as 2 gloo ranks sharing the card
     gdir = os.path.join(tmp, "train_dp_gloo")
@@ -3938,7 +4110,8 @@ def ported_ops_agree(device_label, vgg):
 
 
 def tools_paths(device_label, tmp, vgg) -> dict:
-    """Phase 4l; returns the launch counts by path."""
+    """Phases 4l and 4m (on 4l's trained npz); returns the launch counts by
+    path."""
     t_phase = time.perf_counter()
     by_path, npz = e2e_vgg_path(device_label, tmp)
     torch.cuda.empty_cache()
@@ -3949,6 +4122,97 @@ def tools_paths(device_label, tmp, vgg) -> dict:
     ported_ops_agree(device_label, vgg)
     torch.cuda.empty_cache()
     log(f"phase 4l on {device_label}: {time.perf_counter() - t_phase:.1f} s in all")
+    by_path.update(study_paths(device_label, tmp, npz))
+    torch.cuda.empty_cache()
+    return by_path
+
+
+# --------------------------------------------------------------------------- #
+# phase 4m: the study tools (reference_parity, workingset, crowd, mask fidelity)
+# --------------------------------------------------------------------------- #
+
+WORKINGSET = ["--eval-images", "4", "--pre-nms", "512", "6000", "--post-nms", "304",
+              "--device", "cuda"]
+CROWD = ["--eval-images", "2", "--only", "16,0", "--device", "cuda"]
+
+
+def parity_paths(device_label, tmp) -> dict:
+    """``reference_parity --dry-run`` and ``--dry-run --fabricate proto``,
+    each through its ``test_net`` subprocess (PARITY: PASS, exit 0); then the
+    fabricated run's ``test_net`` argv in this process (its own tree and
+    caffemodel, made alike): its mAP^r equal to the numbers the tool parsed,
+    and its launches the path ``parity_test_net``."""
+    from mnc_tpu_torch.tools import reference_parity as R
+
+    runs = {}
+    for tag, extra in (("random", []), ("fabricated", ["--fabricate", "proto"])):
+        out, sec, _ = run_tool("reference_parity", ["--dry-run", "--device", "cuda", *extra])
+        if out.strip().splitlines()[-1] != "PARITY: PASS":
+            raise AssertionError(f"reference_parity --dry-run {extra}:\n{out[-2000:]}")
+        runs[tag] = (R.parse_map(out), sec)
+    root = os.path.join(tmp, "parity", "sbd")
+    R.build_mini_sbd(root)
+    args = R.parse_args(["--dry-run", "--device", "cuda", "--cache",
+                         os.path.join(tmp, "parity", "detections.pkl")])
+    args.caffemodel = R.fabricate(os.path.dirname(root), "proto", [])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as in the subprocess
+    try:
+        out, sec, counts = run_tool("test_net", R.net_argv(args, root, dry=True))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    aps = R.parse_map(out)
+    if aps != runs["fabricated"][0]:
+        raise AssertionError(f"test_net in process: mAP^r {aps} against the tool's parsed "
+                             f"{runs['fabricated'][0]}")
+    pts = {k: "/".join(f"{v:.2f}" for v in r[0]) for k, r in runs.items()}
+    log(f"reference_parity --dry-run on {device_label}: PARITY: PASS with random weights "
+        f"(mAP^r .5/.7 {pts['random']} points, {runs['random'][1]:.1f} s) and with a "
+        f"fabricated full-size caffemodel ({pts['fabricated']} points, "
+        f"{runs['fabricated'][1]:.1f} s, the subprocess's start-up, import and 4 images); "
+        f"its test_net argv in process: the same mAP^r; {sec:.1f} s; launches {counts}")
+    return {"parity_test_net": counts}
+
+
+def study_paths(device_label, tmp, npz) -> dict:
+    """Phase 4m on phase 4l's trained full-scale npz: ``reference_parity``
+    (:func:`parity_paths`), ``workingset_study`` (4 images, pre-NMS 512 and
+    6000, post-NMS 304: recall and mAP^r per point), ``crowd_study`` (2
+    images of 20-30 instances, dets_per_class 16 with every candidate
+    voting), and ``mask_fidelity_study --trials 50``.  Every record's
+    numbers finite; returns the launch counts by path."""
+    t_phase = time.perf_counter()
+    by_path = parity_paths(device_label, tmp)
+    torch.cuda.empty_cache()
+    out, sec, by_path["workingset"] = run_tool("workingset_study", ["--params", npz,
+                                                                    *WORKINGSET])
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if [r["config"] for r in recs] != ["pre_nms=512,dets_per_class=16",
+                                       "pre_nms=6000,dets_per_class=16",
+                                       "pre_nms=6000,post_nms=304,dets_per_class=16",
+                                       "pre_nms=1024,dets_per_class=100"] or not all(
+            np.isfinite(v) for r in recs for k, v in r.items() if k != "config"):
+        raise AssertionError(f"workingset_study: records {recs}")
+    for r in recs:
+        log(f"workingset {r['config']:<44} on {device_label}: recall .5/.7 "
+            f"{r['recall@.5']:.4f}/{r['recall@.7']:.4f} mAP^r .5/.7 {r['map_r_050']:.4f}/"
+            f"{r['map_r_070']:.4f} {r['ms_per_img']:.1f} ms per image")
+    log(f"workingset_study on {device_label}: {sec:.1f} s; launches {by_path['workingset']}")
+    torch.cuda.empty_cache()
+    out, sec, by_path["crowd"] = run_tool("crowd_study", ["--params", npz, *CROWD])
+    (rec,) = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if rec["config"] != "dets_per_class=16,vote_top_k=all" or rec["n_images"] != 2 or not (
+            20 <= rec["instances_per_image"] <= 30):
+        raise AssertionError(f"crowd_study: record {rec}")
+    log(f"crowd_study on {device_label}: {rec}; {sec:.1f} s; launches {by_path['crowd']}")
+    torch.cuda.empty_cache()
+    out, sec, counts = run_tool("mask_fidelity_study", ["--trials", "50", "--device", "cuda"])
+    rows = [ln for ln in out.splitlines() if ln.split()[1:2] in (["nearest"], ["area"])]
+    if len(rows) != 8:
+        raise AssertionError(f"mask_fidelity_study: table\n{out}")
+    log(f"mask_fidelity_study --trials 50 on {device_label}: {sec:.1f} s; "
+        + "; ".join(" ".join(r.split()) for r in rows))
+    log(f"phase 4m on {device_label}: {time.perf_counter() - t_phase:.1f} s in all")
     return by_path
 
 
@@ -3963,7 +4227,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of mnc_tpu_torch on one GPU")
     ap.add_argument("--only", default=None, help="comma-separated kernels: build and "
                     "check only these, skip the main paths (for bringing a kernel up); "
-                    "'parallel' or 'tools': build every kernel and run phase 4k or 4l alone")
+                    "'parallel' or 'tools': build every kernel and run phase 4k, or 4l and 4m, "
+                    "alone")
     ap.add_argument("--parallel-worker", nargs=4, default=None,
                     metavar=("RANK", "WORLD", "INIT_FILE", "OUT_DIR"),
                     help="(internal) one rank of phase 4k's gloo group")
@@ -4027,7 +4292,7 @@ def main(argv=None) -> int:
 def main_paths(g, smi, only_phase=None) -> dict:
     """Phase 4: each main path with the launch counters zeroed just before
     it and read just after; returns the counts by path.  ``only_phase``
-    "parallel" or "tools" runs phase 4k or 4l alone."""
+    "parallel" or "tools" runs phase 4k, or 4l and 4m, alone."""
     from mnc_tpu_torch.models.mnc import MNCArch
 
     label = f"{torch.cuda.get_device_name(0)} ({smi})"
@@ -4139,9 +4404,9 @@ def report_kernels(results, by_path, t_start) -> None:
         # no Pallas site: XLA's s8 convolution (dense: quant.py:108)
         "gemm_s8": ("gemm_s8_cuda", "mnc_tpu_torch/csrc/gemm_s8.cu",
                     "mnc_tpu/ops/quant.py:84"),
-        # no Pallas site: what XLA fuses for _quant_act
-        "quant_act": ("quant_act_cuda", "mnc_tpu_torch/csrc/quant_act.cu",
-                      "mnc_tpu/ops/quant.py:43"),
+        # no Pallas site: what XLA fuses for _quant_act; with its two halves
+        "quant_act": (("quant_act_cuda", "act_scale_cuda", "quant_with_scale_cuda"),
+                      "mnc_tpu_torch/csrc/quant_act.cu", "mnc_tpu/ops/quant.py:43"),
     }
     # the paths that must launch each kernel
     serving = ("serve", "serve_resnet101_conv5", "serve_resnet101_fc")
@@ -4152,7 +4417,7 @@ def report_kernels(results, by_path, t_start) -> None:
     cfm = ("cfm_serve", "cfm_serve_resnet101_conv5", "cfm_serve_int8")
     real_train, real_test = ("train_voc", "train_coco"), ("test_voc", "test_voc_segdb",
                                                           "test_coco")
-    # phase 4k: the parallel paths (the spatial trunk runs convolutions only)
+    # phase 4k: the parallel paths (the f32 spatial trunk runs convolutions only)
     real_train += ("train_dp", "dp_gloo", "tp_gloo", "train_dp_gloo")
     real_test += ("test_dp", "test_dp_int8", "test_dp_gloo")
     int8 += ("test_dp_int8",)
@@ -4164,17 +4429,20 @@ def report_kernels(results, by_path, t_start) -> None:
     real_train += ("e2e_train", "e2e_remat")
     real_test += ("e2e_eval", "e2e_int8_eval", "e2e_remat") + ablation
     int8 += ("e2e_int8_eval", "ablation_5stage_int8")
+    # phase 4m: the study tools
+    real_test += ("parity_test_net", "workingset", "crowd")
     must = {"roi_warp": serving + training + int8 + cfm + ("cfm_train",) + real_train
             + real_test,
             "roi_warp_bwd": training + ("cfm_train",) + real_train,
             "nms": serving + training + int8 + cfm + real_train + real_test,
             "paste_binarize": serving + int8 + cfm + real_test,
-            "block1": ("train_fused_block1",),
-            "gemm_s8": int8,
-            "quant_act": int8}
+            "block1": ("train_fused_block1", "spatial_block1"),
+            "gemm_s8": int8 + ("spatial_int8",),
+            "quant_act": int8 + ("spatial_int8",)}
     report = []
-    for name, (wrapper, source, replaces) in meta.items():
-        per_path = {path: c[wrapper] for path, c in by_path.items()}
+    for name, (wrappers, source, replaces) in meta.items():
+        wrappers = (wrappers,) if isinstance(wrappers, str) else wrappers
+        per_path = {path: sum(c[w] for w in wrappers) for path, c in by_path.items()}
         for path in must[name]:
             if per_path[path] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the {path} path")

@@ -58,6 +58,13 @@
 //    from shared memory, so HBM sees one read and one write.  Of a row
 //    longer than a block's shared memory (ResNet's fc_mask, 401 KB in bf16)
 //    the tail is held and the rest re-read, from L2 (~23 MB in flight).
+//  * the two halves of the per-tensor contract, for a tensor held in parts
+//    (the spatially sharded trunk): the scale alone (scale_kernel: each
+//    block's share reduced, the last block to arrive merges the partials;
+//    an ordinary launch) and the quantization under a given scale
+//    (quant_given_kernel: one read, one write).  The max of the parts'
+//    scales is the whole tensor's, so the halves composed over the parts
+//    give quant_tensor_kernel's output on the whole, bit for bit.
 // Unaligned inputs (a view off a 16-byte boundary, or rows not a multiple
 // of 16 bytes) take the same kernels with one element a unit.
 
@@ -432,6 +439,94 @@ __global__ void __launch_bounds__(kRowThreads, 2)
   }
 }
 
+// ---- the two halves: the scale alone, the quantization under a given scale --
+
+constexpr int kScaleCount = 16;  // scratch word of scale_kernel's arrival count
+
+// Per tensor, the scale alone (ops/quant.py act_scale): block b reduces its
+// share of units [b * chunk, (b + 1) * chunk) from global memory (pass 1 of
+// quant_tensor_kernel with nothing held), writes its partial max into the
+// scratch and counts itself in; the last block to arrive merges the
+// partials, writes s and resets the count, so the scratch is left as it was
+// found.  An ordinary launch: no block waits for another.
+template <bool BF16, bool VEC>
+__global__ void __launch_bounds__(kTensorThreads, 1)
+    scale_kernel(const void* xp, float* scale, long long n, long long chunk, unsigned* sync) {
+  typedef Elem<BF16> E;
+  constexpr int U = VEC ? E::kVec : 1;
+  const typename E::Raw* x = static_cast<const typename E::Raw*>(xp);
+  const int t = threadIdx.x;
+  const long long units = n / U;
+  const long long lo = blockIdx.x * chunk;
+  const long long hi = lo + chunk < units ? lo + chunk : units;
+  float m = absmax_units<BF16, VEC>(x, lo + t, hi, kTensorThreads);
+  if (VEC && blockIdx.x == gridDim.x - 1)
+    for (long long i = units * U + t; i < n; i += kTensorThreads)
+      m = fmaxf(m, fabsf(E::value(x[i])));
+  m = group_max(m, kTensorThreads);
+  __shared__ unsigned arrived;
+  float* partial = reinterpret_cast<float*>(sync + kSyncWords);
+  if (t == 0) {
+    partial[blockIdx.x] = m;
+    __threadfence();  // the partial is visible before the count
+    arrived = atomicAdd(sync + kScaleCount, 1u);
+  }
+  __syncthreads();
+  if (arrived != gridDim.x - 1) return;
+  __threadfence();
+  float mm = 0.f;
+  for (int i = t; i < (int)gridDim.x; i += kTensorThreads)
+    mm = fmaxf(mm, __ldcg(partial + i));  // L2: other SMs wrote them
+  mm = group_max(mm, kTensorThreads);
+  if (t == 0) {
+    *scale = scale_of<BF16>(mm);
+    sync[kScaleCount] = 0;
+  }
+}
+
+// Per tensor, the quantization under a given f32 scale (ops/quant.py
+// quant_with_scale): the scale rounded to the dtype (a no-op on a scale that
+// scale_kernel or quant_tensor_kernel wrote, the set the bf16 division's
+// proof covers), then block b quantizes its share, kLoads 16-byte loads in
+// flight a thread, as pass 2 of quant_tensor_kernel does with nothing held.
+// One read of x, one write of q: the bound.
+template <bool BF16, bool VEC>
+__global__ void __launch_bounds__(kTensorThreads, 1)
+    quant_given_kernel(const void* xp, int8_t* q, const float* scale, long long n,
+                       long long chunk) {
+  typedef Elem<BF16> E;
+  typedef typename E::Raw Raw;
+  constexpr int U = VEC ? E::kVec : 1;
+  const Raw* x = static_cast<const Raw*>(xp);
+  const int t = threadIdx.x;
+  const long long units = n / U;
+  const long long lo = blockIdx.x * chunk;
+  const long long hi = lo + chunk < units ? lo + chunk : units;
+  const float s = BF16 ? round_bf16(__ldg(scale)) : __ldg(scale);
+  const float y = __frcp_rn(s);
+  quant_share<BF16, VEC>(x, nullptr, nullptr, q, lo, hi, hi, t, kTensorThreads, s, y, false);
+  if (VEC && blockIdx.x == gridDim.x - 1)
+    for (long long i = units * U + t; i < n; i += kTensorThreads)
+      q[i] = quant1<BF16>(E::value(x[i]), s, y);
+}
+
+template <bool BF16>
+cudaError_t run_half(bool given, const void* x, int8_t* q, float* scale, unsigned* sync,
+                     long long n, int vec, long long chunk, int grid, cudaStream_t st) {
+  if (given) {
+    if (vec)
+      quant_given_kernel<BF16, true><<<grid, kTensorThreads, 0, st>>>(x, q, scale, n, chunk);
+    else
+      quant_given_kernel<BF16, false><<<grid, kTensorThreads, 0, st>>>(x, q, scale, n, chunk);
+  } else {
+    if (vec)
+      scale_kernel<BF16, true><<<grid, kTensorThreads, 0, st>>>(x, scale, n, chunk, sync);
+    else
+      scale_kernel<BF16, false><<<grid, kTensorThreads, 0, st>>>(x, scale, n, chunk, sync);
+  }
+  return cudaGetLastError();
+}
+
 constexpr int kMaxDevices = 64;
 
 // lets `kernel` take `bytes` of dynamic shared memory on the current
@@ -566,6 +661,47 @@ extern "C" int mnc_quant_act(const void* x, void* q, void* scale, void* sync, lo
                                 threads_per_row, grid, smem, st)
                     : run<false>(x, qq, ss, sy, rows, k, per_row, vec, chunk, held,
                                  threads_per_row, grid, smem, st));
+}
+
+// Kernel F's two halves, per tensor, for a tensor held in parts (the
+// spatially sharded trunk's ranks): the max of the parts' scales is the
+// whole tensor's (fl(max(m, 1e-8) / 127) is monotone in m), and each part
+// quantized under it is that part of mnc_quant_act's output, bit for bit.
+// x: n elements, bf16 (bf16 = 1) or f32, contiguous; vec, chunk and grid as
+// mnc_quant_act's per-tensor plan gives them (nothing is held on chip).
+// mnc_quant_act_scale writes the one f32 scale, using the per-device
+// scratch of mnc_quant_act (its own count word, left as it was found);
+// mnc_quant_act_given writes q, int8 of x's count, under the f32 scale at
+// `scale` (on the device).  One launch each; returns its CUDA error.
+static int check_half(long long n, int bf16, int vec, long long chunk, int grid) {
+  const long long units = vec ? n / (bf16 ? 8 : 4) : n;
+  if (n <= 0 || grid < 1 || grid > kMaxBlocks || chunk < 1 || (long long)grid * chunk < units ||
+      (long long)(grid - 1) * chunk >= (units > 0 ? units : 1))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+extern "C" int mnc_quant_act_scale(const void* x, void* scale, void* sync, long long n,
+                                   int bf16, int vec, long long chunk, int grid,
+                                   void* stream) {
+  if (int err = check_half(n, bf16, vec, chunk, grid)) return err;
+  if (!sync) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ss = static_cast<float*>(scale);
+  unsigned* sy = static_cast<unsigned*>(sync);
+  return (int)(bf16 ? run_half<true>(false, x, nullptr, ss, sy, n, vec, chunk, grid, st)
+                    : run_half<false>(false, x, nullptr, ss, sy, n, vec, chunk, grid, st));
+}
+
+extern "C" int mnc_quant_act_given(const void* x, void* q, const void* scale, long long n,
+                                   int bf16, int vec, long long chunk, int grid,
+                                   void* stream) {
+  if (int err = check_half(n, bf16, vec, chunk, grid)) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* qq = static_cast<int8_t*>(q);
+  float* ss = const_cast<float*>(static_cast<const float*>(scale));
+  return (int)(bf16 ? run_half<true>(true, x, qq, ss, nullptr, n, vec, chunk, grid, st)
+                    : run_half<false>(true, x, qq, ss, nullptr, n, vec, chunk, grid, st));
 }
 
 // The bf16 division proved by exhaustion: every finite bf16 x (65280)

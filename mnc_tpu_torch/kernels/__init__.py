@@ -7,9 +7,9 @@ returns a CUDA error, and then adds one to its ``launches`` counter — a
 plain integer attribute, so a run can show which kernels the main path
 went through.  The ops modules register each kernel as a ``torch.library``
 custom op (``mnc::roi_warp``, ``mnc::nms_keep``, ``mnc::paste_binarize``,
-``mnc::block1``, ``mnc::gemm_s8``, ``mnc::quant_act``) whose CUDA implementation calls the
-wrapper here and whose
-CPU implementation is the plain PyTorch version; the gradients (A′, and D's
+``mnc::block1``, ``mnc::gemm_s8``, ``mnc::quant_act``, ``mnc::act_scale``,
+``mnc::quant_with_scale``) whose CUDA implementation calls the wrapper here
+and whose CPU implementation is the plain PyTorch version; the gradients (A′, and D's
 backward through its plain version) are called from ``autograd.Function``s.
 Nothing here falls back.
 
@@ -22,6 +22,9 @@ Nothing here falls back.
                            ops/quant.py; no Pallas counterpart)
     quant_act_cuda       — kernel F, csrc/quant_act.cu (the int8 activation
                            quantization; no Pallas counterpart)
+    act_scale_cuda,      — kernel F's two halves, per tensor: the scale alone
+    quant_with_scale_cuda  and the quantization under a given scale (a
+                           tensor held in parts: the spatial trunk)
 
 Kernel A's plan (``plan_roi_warp``) and taps (``roi_warp_taps``), kernel
 E's planner (``plan_gemm_s8``) and weight packing (``pack_gemm_s8_weight``)
@@ -819,6 +822,64 @@ def quant_act_cuda(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.
     return out
 
 
+def _quant_half(fn, x: torch.Tensor, scale: torch.Tensor | None):
+    """Checks, plans and launches one of kernel F's halves through the C
+    function ``fn`` (or the kernel of that name): the scale of x where
+    ``scale`` is None, else x quantized under it."""
+    _check(x, "x", (torch.float32, torch.bfloat16), x.dim())
+    if x.numel() == 0:
+        raise ValueError(f"x has shape {tuple(x.shape)}: nothing to quantize")
+    dev = x.device
+    if scale is not None:
+        _check(scale, "scale", (torch.float32,), scale.dim(), dev)
+        if scale.numel() != 1:
+            raise ValueError(f"scale has shape {tuple(scale.shape)}: one per tensor")
+        out = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % (16 // x.element_size()) == 0
+    else:
+        out = torch.empty((), dtype=torch.float32, device=dev)
+        aligned = x.data_ptr() % 16 == 0
+    plan = plan_quant_act((x.numel(),), False, x.dtype, _n_sms(dev), _smem_per_block(dev),
+                          aligned=aligned)
+    stream = _stream(x)
+    name = fn if isinstance(fn, str) else getattr(fn, "__name__", "quant_act half")
+    if isinstance(fn, str):
+        fn = kernel_function(fn)
+    bf16, vec = int(x.dtype == torch.bfloat16), int(plan.vec)
+    with _on(dev):
+        if scale is None:
+            err = fn(x.data_ptr(), out.data_ptr(), _quant_scratch(dev, stream).data_ptr(),
+                     x.numel(), bf16, vec, plan.chunk, plan.grid, stream)
+        else:
+            err = fn(x.data_ptr(), out.data_ptr(), scale.data_ptr(), x.numel(), bf16, vec,
+                     plan.chunk, plan.grid, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name!r} failed to launch: CUDA error {err} ({plan})")
+    return out
+
+
+def act_scale_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Kernel F's first half: the f32 per-tensor scale (shape ``()``) of
+    activations x (bf16 or f32, contiguous), bit for bit ``ops.quant.
+    act_scale`` and the scale :func:`quant_act_cuda` computes.  One ordinary
+    launch on the per-tensor plan's grid (nothing held on chip), whose last
+    block merges the partial maxima in F's scratch."""
+    out = _quant_half("quant_act_scale", x, None)
+    act_scale_cuda.launches += 1
+    return out
+
+
+def quant_with_scale_cuda(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel F's second half: activations x (bf16 or f32, contiguous)
+    quantized under one given f32 ``scale`` on the device → int8 of x's
+    shape, bit for bit ``ops.quant.quant_with_scale`` for a scale that
+    :func:`act_scale_cuda` (or a max of its results) gave: the set the bf16
+    division is proved on.  One launch: x read once, the int8 written once."""
+    out = _quant_half("quant_act_given", x, scale)
+    quant_with_scale_cuda.launches += 1
+    return out
+
+
 def quant_div_check_cuda(device="cuda") -> dict:
     """Kernel F's bf16 division proved by exhaustion on the card
     (``mnc_quant_div_check``): every finite bf16 x against the scale of every
@@ -837,7 +898,7 @@ def quant_div_check_cuda(device="cuda") -> dict:
 
 
 KERNELS = (roi_warp_cuda, roi_warp_bwd_cuda, nms_keep_cuda, paste_binarize_cuda, block1_cuda,
-           gemm_s8_cuda, quant_act_cuda)
+           gemm_s8_cuda, quant_act_cuda, act_scale_cuda, quant_with_scale_cuda)
 for _k in KERNELS:
     _k.launches = 0
 

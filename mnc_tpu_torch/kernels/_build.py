@@ -43,6 +43,8 @@ KERNEL_ABI = {
 # further C entry points of a kernel's library: name -> (kernel, C function, argtypes)
 EXTRA_ABI = {
     "quant_div_check": ("quant_act", "mnc_quant_div_check", [_P, _P]),
+    "quant_act_scale": ("quant_act", "mnc_quant_act_scale", [_P, _P, _P, _L, _I, _I, _L, _I, _P]),
+    "quant_act_given": ("quant_act", "mnc_quant_act_given", [_P, _P, _P, _L, _I, _I, _L, _I, _P]),
 }
 
 

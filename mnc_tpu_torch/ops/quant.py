@@ -33,7 +33,11 @@ The activation quantization is the custom op ``mnc::quant_act``: on the card
 kernel F (``csrc/quant_act.cu``, bit-identical, one launch a call), on the CPU
 :func:`quant_act`.  Where two int8 convolutions take the same input (a
 ResNet bottleneck's ``conv1`` and ``proj``), it is quantized once
-(:meth:`ConvInt8.quantize`, :func:`conv_int8_quantized`).
+(:meth:`ConvInt8.quantize`, :func:`conv_int8_quantized`).  Kernel F's two
+halves, the per-tensor scale alone (``mnc::act_scale``, :func:`act_scale`)
+and the quantization under a given scale (``mnc::quant_with_scale``,
+:func:`quant_with_scale`), serve a tensor held in parts, the spatially
+sharded trunk's: the largest of the parts' scales is the whole tensor's.
 """
 
 from __future__ import annotations
@@ -71,14 +75,30 @@ def quant_act(x: torch.Tensor, per_row: bool) -> tuple[torch.Tensor, torch.Tenso
     package's ``_quant_act``: the absmax over the whole tensor (or over the
     last axis of each row, kept as a (..., 1) column), floored at 1e-8,
     divided by 127 in the compute dtype; then ``round(x / scale)`` (half to
-    even) clamped to ±127."""
+    even) clamped to ±127.  It is :func:`act_scale` followed by
+    :func:`quant_with_scale`."""
+    scale = act_scale(x, per_row)
+    return quant_with_scale(x, scale), scale
+
+
+def act_scale(x: torch.Tensor, per_row: bool = False) -> torch.Tensor:
+    """The first half of :func:`quant_act`: the f32 scale alone, computed in
+    x's dtype (so exactly a value of that dtype).  ``fl(max(m, 1e-8) / 127)``
+    is monotone in the absmax m, so the scale of a tensor is the largest of
+    the scales of its parts: the spatial trunk's ranks agree on one scale by
+    a max over theirs."""
     if per_row:
         lo, hi = torch.aminmax(x, dim=-1, keepdim=True)
     else:
         lo, hi = torch.aminmax(x)
-    scale = _div127(torch.maximum(-lo, hi).clamp_min(_EPS))
-    q = torch.round(x / scale).clamp_(-127, 127).to(torch.int8)
-    return q, scale.float()
+    return _div127(torch.maximum(-lo, hi).clamp_min(_EPS)).float()
+
+
+def quant_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The second half of :func:`quant_act`: ``clamp(round(x / scale),
+    ±127)`` as int8, the scale (f32, broadcast against x) cast to x's dtype
+    first, which leaves a scale of :func:`act_scale` unchanged."""
+    return torch.round(x / scale.to(x.dtype)).clamp_(-127, 127).to(torch.int8)
 
 
 _QUANTIZED = WeakIdKeyDictionary()
@@ -188,6 +208,46 @@ def _quant_act_op_cuda(x, per_row):
 def _quant_act_op_fake(x, per_row):
     return (x.new_empty(x.shape, dtype=torch.int8),
             x.new_empty((*x.shape[:-1], 1) if per_row else (), dtype=torch.float32))
+
+
+@torch.library.custom_op("mnc::act_scale", mutates_args=(), device_types="cpu")
+def act_scale_op(x: torch.Tensor) -> torch.Tensor:
+    """Kernel F's first half as a custom op: the f32 per-tensor scale of
+    :func:`act_scale` (shape ``()``).  CUDA: ``kernels.act_scale_cuda``."""
+    return act_scale(x, False)
+
+
+@act_scale_op.register_kernel("cuda")
+def _act_scale_op_cuda(x):
+    from mnc_tpu_torch.kernels import act_scale_cuda
+
+    return act_scale_cuda(x.contiguous())
+
+
+@act_scale_op.register_fake
+def _act_scale_op_fake(x):
+    return x.new_empty((), dtype=torch.float32)
+
+
+@torch.library.custom_op("mnc::quant_with_scale", mutates_args=(), device_types="cpu")
+def quant_with_scale_op(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel F's second half as a custom op: x quantized under one given
+    f32 scale (:func:`quant_with_scale`), a contiguous int8 tensor of x's
+    shape.  CUDA: ``kernels.quant_with_scale_cuda``, whose division is
+    proved for the scales :func:`act_scale` gives (a max of them included)."""
+    return quant_with_scale(x, scale).contiguous()
+
+
+@quant_with_scale_op.register_kernel("cuda")
+def _quant_with_scale_op_cuda(x, scale):
+    from mnc_tpu_torch.kernels import quant_with_scale_cuda
+
+    return quant_with_scale_cuda(x.contiguous(), scale)
+
+
+@quant_with_scale_op.register_fake
+def _quant_with_scale_op_fake(x, scale):
+    return x.new_empty(x.shape, dtype=torch.int8)
 
 
 def conv_int8(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,

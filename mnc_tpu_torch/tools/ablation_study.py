@@ -70,15 +70,22 @@ def parse_args(argv=None):
     return args
 
 
-def base_arch(args):
+def smoke_arch():
+    """The tiny f32 architecture of the tools' ``--smoke`` (the JAX tools')."""
     import torch
 
     from mnc_tpu_torch.models.mnc import MNCArch
 
+    return MNCArch(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
+                   warp_hw=4, n_stages=5, fc_dim=48, mask_fc_dim=24, pre_nms_top_n=64,
+                   post_nms_top_n=16, rpn_min_size=4.0, compute_dtype=torch.float32)
+
+
+def base_arch(args):
+    from mnc_tpu_torch.models.mnc import MNCArch
+
     if args.smoke:
-        return MNCArch(canvas=(96, 128), anchor_scales=(2, 4, 8), num_classes=4, mask_size=9,
-                       warp_hw=4, n_stages=5, fc_dim=48, mask_fc_dim=24, pre_nms_top_n=64,
-                       post_nms_top_n=16, rpn_min_size=4.0, compute_dtype=torch.float32)
+        return smoke_arch()
     return MNCArch(canvas=(640, 1024), anchor_scales=(8, 16, 32), num_classes=6,
                    mask_size=args.mask_size, warp_hw=14, n_stages=5, fc_dim=4096,
                    mask_fc_dim=256, pre_nms_top_n=args.pre_nms, post_nms_top_n=304,
@@ -118,30 +125,38 @@ def validation_set(base, args):
     return val_ex, ids, gt
 
 
-def run_variant(arch, post, state_dict, val_ex, device):
-    """One variant's detections over the validation images: (evaluator
-    records, seconds of ``detect_canvas_packed`` including the copy to the
-    host)."""
+def detect_all(pipe, examples, device) -> tuple[list, float]:
+    """``pipe.detect_canvas_packed`` over ``examples`` [(image id, example)]:
+    (evaluator records at score 0.05, seconds of the detect calls with a
+    synchronize and the copy to the host)."""
     import torch
 
     from mnc_tpu_torch.data.eval_sds import collect_detections
-    from mnc_tpu_torch.models.mnc import MNC
-    from mnc_tpu_torch.pipeline.inference import MNCPipeline, unpack_canvas_masks
+    from mnc_tpu_torch.pipeline.inference import unpack_canvas_masks
 
-    model = MNC(arch, device=device, seed=None)  # no random init: the weights are loaded
-    model.load_state_dict(state_dict)
-    pipe = MNCPipeline(model, post)
     dets, t_det = [], 0.0
-    for iid, ex in val_ex:
+    for iid, ex in examples:
         t0 = time.perf_counter()
         out = pipe.detect_canvas_packed(ex["image"], ex["im_info"])
         if device.type == "cuda":
             torch.cuda.synchronize()
         out = {k: v.cpu().numpy() for k, v in out.items()}
         t_det += time.perf_counter() - t0
-        out = unpack_canvas_masks(out, arch.canvas[1])
+        out = unpack_canvas_masks(out, pipe.arch.canvas[1])
         dets.extend(collect_detections(out, iid, score_thresh=0.05))
     return dets, t_det
+
+
+def run_variant(arch, post, state_dict, val_ex, device):
+    """One variant's detections over the validation images: (evaluator
+    records, seconds of ``detect_canvas_packed`` including the copy to the
+    host)."""
+    from mnc_tpu_torch.models.mnc import MNC
+    from mnc_tpu_torch.pipeline.inference import MNCPipeline
+
+    model = MNC(arch, device=device, seed=None)  # no random init: the weights are loaded
+    model.load_state_dict(state_dict)
+    return detect_all(MNCPipeline(model, post), val_ex, device)
 
 
 def run_variants(params: dict, args, device) -> tuple[list, dict]:

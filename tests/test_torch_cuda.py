@@ -672,6 +672,38 @@ def test_quant_act_kernel_matches_plain(gen, case, dtype, per_row):
     assert torch.equal(got_q.cpu(), cpu_q) and torch.equal(got_s.cpu(), cpu_s)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["random", "edges", "zeros", "odd sizes", "unaligned"])
+def test_quant_act_halves_compose_to_kernel_f(gen, case, dtype):
+    """Kernel F's two halves (``act_scale_cuda``, ``quant_with_scale_cuda``):
+    on the whole tensor, and over its first 2 rows and the rest (the max of
+    the parts' scales, each part quantized under it), bit for bit kernel F's
+    per-tensor output, and the plain halves on the CPU."""
+    from mnc_tpu_torch.ops.quant import act_scale, quant_with_scale
+
+    if case == "random":
+        x = (torch.randn(5, 37, 29, 64, generator=gen, device="cuda") * 3).to(dtype)
+    elif case == "edges":
+        x = _quant_edge(dtype, False).cuda()
+    elif case == "zeros":
+        x = torch.zeros(5, 40, dtype=dtype, device="cuda")
+    elif case == "odd sizes":
+        x = (torch.randn(3, 5, 7, 9, generator=gen, device="cuda") * 100).to(dtype)
+    else:  # one element past a 16-byte boundary: scalar loads
+        buf = (torch.randn(7 * 33 + 1, generator=gen, device="cuda") * 4).to(dtype)
+        x = buf[1:].view(7, 33)
+    want_q, want_s = kernels.quant_act_cuda(x, False)
+    s = kernels.act_scale_cuda(x)
+    assert s.shape == () and s.dtype == torch.float32 and torch.equal(s, want_s)
+    assert torch.equal(kernels.quant_with_scale_cuda(x, s), want_q)
+    parts = (x[:2].contiguous(), x[2:].contiguous())
+    s2 = torch.stack([kernels.act_scale_cuda(p) for p in parts]).max()
+    q2 = torch.cat([kernels.quant_with_scale_cuda(p, s2) for p in parts])
+    assert torch.equal(s2, want_s) and torch.equal(q2, want_q)
+    assert torch.equal(s.cpu(), act_scale(x.cpu(), False))
+    assert torch.equal(want_q.cpu(), quant_with_scale(x.cpu(), s.cpu()))
+
+
 @pytest.mark.parametrize("shape,per_row", [((4, 40, 64, 1024), False), ((1216, 100352), True)])
 def test_quant_act_kernel_one_launch_and_exact_division(gen, shape, per_row):
     """Kernel F's bf16 division proved by exhaustion on the card (every

@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_mnc_tpu():
             "mnc_tpu_torch.tools.make_coco_synth", "mnc_tpu_torch.native",
             "mnc_tpu_torch.ops.mask_voting", "mnc_tpu_torch.ops.roi_warp",
             "mnc_tpu_torch.tools.e2e_synth_demo",
-            "mnc_tpu_torch.tools.ablation_study"} <= set(mods)
+            "mnc_tpu_torch.tools.ablation_study", "mnc_tpu_torch.tools.reference_parity",
+            "mnc_tpu_torch.tools.workingset_study", "mnc_tpu_torch.tools.crowd_study",
+            "mnc_tpu_torch.tools.mask_fidelity_study"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -100,10 +102,12 @@ def test_train_net_refuses_to_run_without_gpu(tmp_path):
     assert rc == 0 and (tmp_path / "ckpt_00000002" / "train_state.npz").exists()
 
 
-@pytest.mark.parametrize("tool", ["test_net", "demo", "e2e_synth_demo", "ablation_study"])
+@pytest.mark.parametrize("tool", ["test_net", "demo", "e2e_synth_demo", "ablation_study",
+                                  "reference_parity", "workingset_study", "crowd_study",
+                                  "mask_fidelity_study"])
 def test_eval_entry_points_refuse_to_run_without_gpu(tool, tmp_path):
-    """test_net, demo, e2e_synth_demo and ablation_study run on the card
-    unless --device cpu is given."""
+    """test_net, demo, e2e_synth_demo, ablation_study and the four studies
+    run on the card unless --device cpu is given."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-GPU behaviour cannot be shown")
     import importlib
@@ -111,7 +115,11 @@ def test_eval_entry_points_refuse_to_run_without_gpu(tool, tmp_path):
     main = importlib.import_module(f"mnc_tpu_torch.tools.{tool}").main
     argv = {"demo": ["--synthetic", "--out", str(tmp_path)], "test_net": ["--imdb", "synthetic_4"],
             "e2e_synth_demo": ["--iters", "1", "--out", str(tmp_path)],
-            "ablation_study": ["--smoke", "--append", str(tmp_path / "a.jsonl")]}[tool]
+            "ablation_study": ["--smoke", "--append", str(tmp_path / "a.jsonl")],
+            "reference_parity": ["--dry-run"],
+            "workingset_study": ["--smoke", "--append", str(tmp_path / "w.jsonl")],
+            "crowd_study": ["--smoke", "--append", str(tmp_path / "c.jsonl")],
+            "mask_fidelity_study": []}[tool]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
     assert not any(tmp_path.iterdir())
@@ -143,10 +151,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                              torch.ones(8), None, 1, 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.quant_act_cuda(torch.zeros(4, 16, dtype=torch.bfloat16), per_row=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.act_scale_cuda(torch.zeros(4, 16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.quant_with_scale_cuda(torch.zeros(4, 16, dtype=torch.bfloat16), torch.ones(()))
     assert kernels.launch_counts() == {"roi_warp_cuda": 0, "roi_warp_bwd_cuda": 0,
                                        "nms_keep_cuda": 0, "paste_binarize_cuda": 0,
                                        "block1_cuda": 0, "gemm_s8_cuda": 0,
-                                       "quant_act_cuda": 0}
+                                       "quant_act_cuda": 0, "act_scale_cuda": 0,
+                                       "quant_with_scale_cuda": 0}
 
 
 def _keys(tree, prefix=""):

@@ -9,7 +9,8 @@ under ``sd/<name>``, the global batch under ``batch/<key>``, the draws
 under ``draws/<field>/<i>``, images); each rank writes ``rank<R>.npz`` into
 ``OUT_DIR``.  Scenarios: ``dp`` (``data_parallel_train_step``), ``hybrid``
 (``hybrid_parallel_train_step`` on a {data: 2, model: WORLD/2} mesh, with
-a TP checkpoint), ``spatial`` (``spatial_trunk_features``), ``eval``
+a TP checkpoint), ``spatial`` (``spatial_trunk_features``; bf16 features
+saved as f32), ``eval
 (``data_parallel_eval_step``).  One torch thread per rank; the group times
 out after 120 s rather than hang.
 """
@@ -115,8 +116,8 @@ def main(scenario, init_file, rank, world, in_dir, out_dir) -> None:
         for name, arch_kw in spec["trunks"].items():
             model = load_model(arrays, make_arch(arch_kw), train=False, prefix=f"{name}/")
             fn = spatial_trunk_features(model, mesh)
-            out[f"feat/{name}"] = fn(torch.from_numpy(shard_image(arrays["image"], mesh)))
-            out[f"feat/{name}"] = out[f"feat/{name}"].numpy()
+            feat = fn(torch.from_numpy(shard_image(arrays["image"], mesh)))
+            out[f"feat/{name}"] = feat.float().numpy()  # bf16 (kernel D's trunk) exactly
         try:
             shard_image(arrays["image"][:-16], mesh)
         except ValueError as e:
