@@ -132,11 +132,11 @@ Phases, each printing its lines before the two JSON lines at the end:
       voc_2012_seg_train`` at full width (``from_cfg(train=True)``) from
       f.'s caffemodel (``--weights``), 4 steps with a snapshot after each; a
       second run resumed from step 2 takes step 3 (its losses equal the
-      first run's; its step-3 state, parameter by parameter and momentum by
-      momentum, within ``RESUME_STATE_BOUND`` of each leaf's step-3 update:
-      kernel A′'s float atomics and cuDNN's backward sum in a run-dependent
-      order), a third resumed from the first run's step-3 snapshot takes
-      step 4 (its losses equal the first run's); ``tools.test_net`` over the
+      first run's, and its step-3 state bit for bit, parameter by parameter
+      and momentum by momentum, as the JAX package's
+      ``test_resume_reproduces_training`` requires), a third resumed from
+      the first run's step-3 snapshot takes step 4 (its losses equal the
+      first run's); ``tools.test_net`` over the
       SBD tree on the trained state (``pipe.detect``) and with its ground
       truth as ``--segdb``;
       ``train_net`` (2 steps) and ``test_net --coco-ap`` (4 images) over the
@@ -147,14 +147,16 @@ Phases, each printing its lines before the two JSON lines at the end:
       SBD tree: ``tools.train_net --dp`` at world 1 through NCCL (2 steps
       of 2 images, full-width VGG-16) against ``train_net`` (step 1 from
       the same init and step 2 from the DP run's step-1 snapshot: losses
-      equal, states within ``RESUME_STATE_BOUND``); the DP step against
+      and states bit for bit: the all-reduce of one rank leaves each
+      gradient as it is); the DP step against
       the plain step on one model (the all-reduce's cost at world 1, its
       gradient bytes); ``tools.test_net --dp --eval-batch 4`` on
       ``synthetic_8`` (detections equal to ``--eval-batch 1``'s, the same
       one-image runner; compared with ``--eval-batch 4``); then 2 gloo
       ranks sharing the card (``--parallel-worker``): the DP step (1 image
       a rank) against one process's per-image backward summed and halved
-      (losses equal, states within the bound), the TP step ({data: 1,
+      (losses equal, states within ``RESUME_STATE_BOUND``: the two sum the
+      gradients in different splits), the TP step ({data: 1,
       model: 2}, fc6's 25088x4096 split in two, f32 3-stage) against the
       plain step (losses within 1e-5 relative, the gathered checkpoint
       within the bound), the spatial trunk (2 x 320 rows of 640x1024, f32)
@@ -175,10 +177,9 @@ Phases, each printing its lines before the two JSON lines at the end:
       ``e2e_eval``, ``e2e_int8_eval``; per-step and per-evaluation walls);
       the ResNet-101 conv5 configuration, whose trunk is rematerialized
       (2 steps, path ``e2e_remat``), then one step with and one without
-      ``remat_trunk`` from the same init and draws (losses bit for bit,
-      states within ``RESUME_STATE_BOUND`` of the update, the peak memory
-      of each, remat's lower); ``tools.ablation_study`` at full scale on the
-      trained npz (4 images over seeds 99 and 7, 50 bootstrap resamples,
+      ``remat_trunk`` from the same init and draws (losses and states bit
+      for bit, the peak memory of each, remat's lower);
+      ``tools.ablation_study`` at full scale on the trained npz (4 images over seeds 99 and 7, 50 bootstrap resamples,
       COCO AP; paths ``ablation_<variant>``, ``5stage_int8`` with E and F),
       and ``--only 3stage`` after it with the paired deltas; ``--smoke``
       on the card against the CPU (records equal but ``ms_per_img``);
@@ -197,7 +198,17 @@ Phases, each printing its lines before the two JSON lines at the end:
       ``tools.crowd_study`` at full width (2 images of 20-30 instances,
       ``--only 16,0``; path ``crowd``) and ``tools.mask_fidelity_study
       --trials 50``.
-      ``--only tools`` builds the kernels and runs phases l and m alone.
+      ``--only tools`` builds the kernels and runs phases l and m alone;
+   n. determinism: one full-width step of each training path twice from
+      one state, one batch and one draw (the state restored in place):
+      VGG-16 (5-stage, bf16, ``from_cfg(train=True)``, 2 images), the CFM
+      step and the DP step at world 1 through NCCL on that network, and the
+      ResNet-101 COCO configuration's conv5 head; every parameter,
+      momentum, counter and metric bit for bit (the counterparts of the JAX
+      package's ``test_training_is_deterministic``), then the same step
+      under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
+      which must list no op (a probe, ``torch.histc``, shows that it would).
+      ``--only determinism`` builds the kernels and runs this phase alone.
 5. the ``kernels`` JSON line (launches of phase 4 by path; times and errors
    of phase 3, per shape where there are several; bounds from this run's
    inputs), then ``{"ok": true, ...}``.
@@ -509,21 +520,42 @@ def _bwd_box_sets(g, b, n):
 
 
 def check_roi_warp_bwd(g):
-    """Kernel A' on the VGG-16 train step's C = 512 (three RoI sets, the main
-    row) and the ResNet one's C = 1024 (the train step's mix)."""
-    shapes = {"C=512": _check_roi_warp_bwd(g, 512, None),
-              "C=1024": _check_roi_warp_bwd(g, 1024, ("mixed 16-500 px",))}
+    """Kernel A' on the VGG-16 train step's C = 512 (the main row) and the
+    ResNet one's C = 1024, each on the three RoI sets."""
+    shapes = {"C=512": _check_roi_warp_bwd(g, 512),
+              "C=1024": _check_roi_warp_bwd(g, 1024)}
     return dict(shapes["C=512"], shapes=shapes)
 
 
-def _check_roi_warp_bwd(g, c, only_sets):
+def _hold_bwd_lists(rois, out_hw, s, map_hw, ints, label):
+    """Kernel A′'s tile lists and plan, read from its scratch, against their
+    plain twins (``roi_warp_bwd_lists``, ``roi_warp_bwd_plan``): equal."""
+    from mnc_tpu_torch.kernels import (roi_warp_bwd_lists, roi_warp_bwd_plan,
+                                       roi_warp_bwd_read_lists)
+
+    b, n = rois.shape[:2]
+    counts, lists, splits, base = roi_warp_bwd_read_lists(ints, b, n, map_hw)
+    want_counts, want_lists = roi_warp_bwd_lists(rois, out_hw, s, map_hw)
+    want_splits, want_base = roi_warp_bwd_plan(want_counts)
+    same = (torch.equal(counts, want_counts) and torch.equal(lists, want_lists)
+            and torch.equal(splits, want_splits) and torch.equal(base, want_base))
+    log(f"kernel A' roi_warp_bwd {label}: tile lists equal to the plain twin's {same} "
+        f"({counts.numel()} tiles, {int(counts.sum())} entries, longest {int(counts.max())}; "
+        f"{int(splits.sum())} units, {int((splits > 1).sum())} tiles split)")
+    if not same:
+        raise AssertionError(f"roi_warp_bwd: the tile lists or the plan differ from the "
+                             f"plain twins ({label})")
+
+
+def _check_roi_warp_bwd(g, c):
     """Kernel A' against autograd through roi_warp_plain at the train step's
-    shapes, on three RoI sets (or those named).  f32: tight.  bf16: tight
-    against the f32 plain gradient of the same bf16-valued inputs (the kernel
-    accumulates in f32 and rounds once), loose against the bf16 plain
-    gradient (which, like JAX's, runs through bf16-rounded hats and a bf16
-    intermediate).  d rois must be bit-equal between two runs."""
-    from mnc_tpu_torch.kernels import roi_warp_bwd_cuda
+    shapes, on the three RoI sets.  f32: tight.  bf16: tight against the f32
+    plain gradient of the same bf16-valued inputs (the kernel accumulates in
+    f32 and rounds once), loose against the bf16 plain gradient (which, like
+    JAX's, runs through bf16-rounded hats and a bf16 intermediate).  Its tile
+    lists and plan must equal their plain twins', and dF and d rois must be
+    bit-equal between two runs."""
+    from mnc_tpu_torch.kernels import _roi_warp_bwd, roi_warp_bwd_cuda
     from mnc_tpu_torch.ops.roi_warp import bin_centers, roi_warp_plain
     import torch.nn.functional as F
 
@@ -532,8 +564,6 @@ def _check_roi_warp_bwd(g, c, only_sets):
     gout32 = torch.randn(b, n, *out_hw, c, generator=g, device="cuda")
     f, go = feat32.to(torch.bfloat16), gout32.to(torch.bfloat16)
     sets = _bwd_box_sets(g, b, n)
-    if only_sets:
-        sets = {k: v for k, v in sets.items() if k in only_sets}
 
     def plain_grads(rois, f, go):
         fp, rp = f.clone().requires_grad_(), rois.clone().requires_grad_()
@@ -554,7 +584,8 @@ def _check_roi_warp_bwd(g, c, only_sets):
 
     err16, set_ms = {}, {}
     for label, rois in sets.items():
-        got32 = roi_warp_bwd_cuda(gout32, feat32, rois, s)
+        *got32, ints = _roi_warp_bwd(gout32, feat32, rois, s, keep_scratch=True)
+        _hold_bwd_lists(rois, out_hw, s, (h, w), ints, f"C={c} [{label}]")
         compare(f"[{label}] f32", got32, plain_grads(rois, feat32, gout32), 1e-5, 1e-4)
         got16 = roi_warp_bwd_cuda(go, f, rois, s)
         # one rounding to bf16 of an f32-accurate sum: at most half an ulp, 2^-8
@@ -567,12 +598,14 @@ def _check_roi_warp_bwd(g, c, only_sets):
         for dt_label, args in (("f32", (gout32, feat32)), ("bf16", (go, f))):
             again = roi_warp_bwd_cuda(*args, rois, s)
             first = got32 if dt_label == "f32" else got16
-            if not torch.equal(again[1], first[1]):
-                raise AssertionError(f"roi_warp_bwd: d rois differs between two runs "
-                                     f"({label}, {dt_label})")
+            for name, x, y in (("dF", again[0], first[0]), ("d rois", again[1], first[1])):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"roi_warp_bwd: {name} differs between two runs "
+                                         f"({label}, {dt_label}, C={c}): "
+                                         f"{int((x != y).sum())} elements")
         set_ms[label] = cuda_ms(lambda: roi_warp_bwd_cuda(go, f, rois, s))
-        log(f"kernel A' roi_warp_bwd C={c} [{label}]: d rois bit-equal between two runs; bf16 "
-            f"kernel_ms {set_ms[label]:.4f}")
+        log(f"kernel A' roi_warp_bwd C={c} [{label}]: dF and d rois bit-equal between two "
+            f"runs in f32 and bf16; bf16 kernel_ms {set_ms[label]:.4f}")
 
     main = "mixed 16-500 px"
     rois = sets[main]
@@ -3112,12 +3145,16 @@ def oracle_scores(data_dir, coco_split):
 
 
 # the bound on the largest difference of a leaf (parameter or momentum) between
-# two states of one step computed anew from one earlier state, relative to
-# that leaf's update in the step.  A′'s float atomics and cuDNN's backward
-# sum in a run-dependent order, and the bf16 gradients round the difference
-# up to whole ulps (2^-8 of a value) that the layers below compound: three
-# full runs on one H100 spread to 2.94e-2 (train_voc's conv3_3 kernel;
-# CHANGES.md); a fault (a lost image, a doubled update) moves a leaf by O(1)
+# two states of one step that sum the step's gradients in different splits,
+# relative to that leaf's update in the step: the 2-rank DP step against one
+# process's per-image backward summed and halved, and the TP step (fc6 split
+# over 2 ranks) against the plain step.  Their sums differ by rounding, which
+# the bf16 layers round up to whole ulps (2^-8 of a value) and the layers
+# below compound; a fault (a lost image, a doubled update) moves a leaf by
+# O(1).  Two computations of the same step (a resumed run, train_net --dp at
+# world 1, remat against no remat, phase 4n) are held bit for bit instead:
+# train steps are run-independent on the card (kernel A′ sums in an order
+# fixed by its inputs; cuDNN is held to deterministic algorithms).
 RESUME_STATE_BOUND = 1e-1
 
 
@@ -3153,6 +3190,24 @@ def state_spread(a_dir, b_dir, prev_dir=None, lr=None) -> dict:
             continue
         out[k] = float(diff / update)
     return out
+
+
+def check_equal_states(what, a_dir, b_dir, prev_dir=None, lr=None) -> str:
+    """Two ``train_state.npz`` of one step (step directories) leaf by leaf,
+    bit for bit; on a difference raises with ``state_spread``'s largest
+    leaves.  Returns a summary."""
+    a = np.load(os.path.join(a_dir, "train_state.npz"))
+    b = np.load(os.path.join(b_dir, "train_state.npz"))
+    differ = [k for k in a.files if k not in b.files or not np.array_equal(a[k], b[k])]
+    if differ:
+        spread = state_spread(a_dir, b_dir, prev_dir, lr)
+        top = sorted(spread, key=spread.get, reverse=True)[:3]
+        raise AssertionError(f"{what}: {len(differ)} of {len(a.files)} leaves differ ("
+                             + ", ".join(f"{k}: {spread[k]:.2e} of its update" for k in top)
+                             + ")")
+    summary = f"all {len(a.files)} leaves (parameters, momenta, counters) bit for bit"
+    log(f"{what}: {summary}")
+    return summary
 
 
 def check_spread(what, spread) -> str:
@@ -3222,14 +3277,13 @@ def real_data_paths(device_label, tmp, caffemodel):
         + "; ".join(f"step {s}: total {a[s]['total']:.6f}" for s in (1, 2, 3, 4))
         + f"; resumed from 2: step 3 total {b[3]['total']:.6f}; resumed from 3: step 4 total "
         f"{c[4]['total']:.6f}; launches {by_path['train_voc']}")
-    summary = check_spread("train_voc step 3", state_spread(
-        os.path.join(full, "ckpt_00000003"), os.path.join(runs["from_2"][0], "ckpt_00000003"),
-        os.path.join(full, "ckpt_00000002")))
+    summary = check_equal_states(
+        "train_voc step 3", os.path.join(full, "ckpt_00000003"),
+        os.path.join(runs["from_2"][0], "ckpt_00000003"), os.path.join(full, "ckpt_00000002"))
     log(f"train_voc resume: step 3 max |loss diff| {d3:.1e} (must be 0: the same snapshot); "
         f"step 4 from the uninterrupted run's step-3 snapshot: max |loss diff| {d4:.1e} (must "
         f"be 0: the forward from one state is deterministic); the two step-3 states (each "
-        f"computed anew from step 2: A\u2032's float atomics and cuDNN's backward sum in a "
-        f"run-dependent order): {summary}")
+        f"computed anew from step 2): {summary}")
     if d3 != 0.0 or d4 != 0.0:
         raise AssertionError("train_voc: the resumed losses differ from the uninterrupted run's")
     log(f"train_voc on {device_label}: uninterrupted run {sec:.1f} s (4 steps, 4 snapshots), "
@@ -3597,7 +3651,7 @@ def parallel_paths(device_label, tmp):
     the counts by path."""
     from mnc_tpu_torch.models.mnc import MNC, MNCArch
     from mnc_tpu_torch.parallel.mesh import slice_draws
-    from mnc_tpu_torch.train.loop import make_train_step, mnc_loss
+    from mnc_tpu_torch.train.loop import deterministic_cudnn, make_train_step, mnc_loss
     from mnc_tpu_torch.utils.checkpoint import save_checkpoint
 
     t_phase = time.perf_counter()
@@ -3608,7 +3662,8 @@ def parallel_paths(device_label, tmp):
     by_path = {}
 
     # train_net --dp at world 1 (NCCL) against train_net: step 1 from the same init, step 2
-    # from the DP run's step-1 snapshot; losses equal, the states within the bound
+    # from the DP run's step-1 snapshot; losses and states bit for bit (the all-reduce of
+    # one rank sums one term, and the mean divides by 1)
     base = ["--imdb", "voc_2012_seg_train", "--ims-per-batch", "2", "--print-every", "1",
             "--device", "cuda"]
     dp_dir = os.path.join(tmp, "train_dp")
@@ -3626,12 +3681,11 @@ def parallel_paths(device_label, tmp):
     keys = [k for k in dp[1] if k not in ("step", "time", "lr")]
     d1 = max(abs(dp[1][k] - p1[1][k]) for k in keys)
     d2 = max(abs(dp[2][k] - p2[2][k]) for k in keys)
-    s1 = check_spread("train_net --dp step 1", state_spread(
-        os.path.join(dp_dir, "ckpt_00000001"), os.path.join(plain1, "ckpt_00000001"),
-        lr=0.001))
-    s2 = check_spread("train_net --dp step 2", state_spread(
-        os.path.join(dp_dir, "ckpt_00000002"), os.path.join(plain2, "ckpt_00000002"),
-        os.path.join(dp_dir, "ckpt_00000001")))
+    s1 = check_equal_states("train_net --dp step 1", os.path.join(dp_dir, "ckpt_00000001"),
+                            os.path.join(plain1, "ckpt_00000001"), lr=0.001)
+    s2 = check_equal_states("train_net --dp step 2", os.path.join(dp_dir, "ckpt_00000002"),
+                            os.path.join(plain2, "ckpt_00000002"),
+                            os.path.join(dp_dir, "ckpt_00000001"))
     log(f"train_net --dp (world 1, NCCL, full-width VGG-16, SBD tree, 2 images a step) on "
         f"{device_label}: {sec:.1f} s for 2 steps (model build and snapshots included; "
         f"{_done(out)}); totals " + ", ".join(f"{dp[s]['total']:.6f}" for s in (1, 2))
@@ -3690,15 +3744,16 @@ def parallel_paths(device_label, tmp):
     # and halved (what the all-reduce of 2 ranks computes), then the solver
     arch, tc, state, batch, draws = _par_setup("dp")
     per = []
-    for i in range(2):
-        total, m = mnc_loss(state.model, {k: v[i:i + 1] for k, v in batch.items()},
-                            slice_draws(draws, i, 1), arch, state.model.anchors, tc)
-        total.backward()
-        per.append(m)
-    for p in state.model.parameters():
-        if p.grad is not None:
-            p.grad.div_(2)
-    state.opt.step()
+    with deterministic_cudnn():
+        for i in range(2):
+            total, m = mnc_loss(state.model, {k: v[i:i + 1] for k, v in batch.items()},
+                                slice_draws(draws, i, 1), arch, state.model.anchors, tc)
+            total.backward()
+            per.append(m)
+        for p in state.model.parameters():
+            if p.grad is not None:
+                p.grad.div_(2)
+        state.opt.step()
     state.step += 1
     want = {k: float((per[0][k].detach() + per[1][k].detach()) / 2) for k in per[0]}
     save_checkpoint(os.path.join(tmp, "dp_one"), state, step=1)
@@ -3902,8 +3957,9 @@ def e2e_remat_path(device_label, tmp):
     """(ii) ``e2e_synth_demo --full-scale --trunk resnet101 --roi-conv5``
     (so ``remat_trunk`` is on), 2 steps; then one step of the same model
     with and without remat from the same init and draws: step 1's losses
-    bit for bit, the states within ``RESUME_STATE_BOUND`` of the update
-    (kernel A′'s float atomics), the remat step's peak memory lower."""
+    bit for bit, the states bit for bit (the same step; the trunk's forward
+    is recomputed in the backward by the same deterministic algorithms),
+    the remat step's peak memory lower."""
     from mnc_tpu_torch.data.synth_imdb import SyntheticIMDB
     from mnc_tpu_torch.models.mnc import MNC
     from mnc_tpu_torch.tools import e2e_synth_demo as E
@@ -3956,18 +4012,19 @@ def e2e_remat_path(device_label, tmp):
     (lr_, sr, msr, pr), (lp, sp, msp, pp) = res[True], res[False]
     if lr_ != lp:
         raise AssertionError(f"remat step 1: losses differ from the plain step's: {lr_} vs {lp}")
-    worst = 0.0
+    differ = {}
     for n, p0 in init.items():
-        upd = (sp[n] - p0).abs().max().item()
-        diff = (sr[n] - sp[n]).abs().max().item()
-        worst = max(worst, diff / upd if upd > 0 else (0.0 if diff == 0 else float("inf")))
-    if worst > RESUME_STATE_BOUND or not pr < pp:
-        raise AssertionError(f"remat step: state {worst:.3e} of the update from the plain "
-                             f"step's (bound {RESUME_STATE_BOUND}); peak {pr:.2f} GiB against "
-                             f"{pp:.2f} GiB")
+        if not torch.equal(sr[n], sp[n]):
+            upd = (sp[n] - p0).abs().max().item()
+            differ[n] = (sr[n] - sp[n]).abs().max().item() / max(upd, 1e-30)
+    if differ or not pr < pp:
+        top = sorted(differ, key=differ.get, reverse=True)[:3]
+        raise AssertionError(f"remat step: {len(differ)} parameters differ from the plain "
+                             f"step's ({', '.join(f'{n}: {differ[n]:.2e} of its update' for n in top)}); "
+                             f"peak {pr:.2f} GiB against {pp:.2f} GiB")
     log(f"remat_trunk on {device_label} (ResNet-101 conv5 head, 2 images, 640x1024): step 1 "
-        f"losses equal bit for bit to the plain step's (total {lr_['total']:.6f}); states "
-        f"within {worst:.3e} of each leaf's update (bound {RESUME_STATE_BOUND}); peak memory "
+        f"losses equal bit for bit to the plain step's (total {lr_['total']:.6f}); all "
+        f"{len(init)} parameters bit for bit; peak memory "
         f"above the resident {pr:.2f} GiB with remat against {pp:.2f} GiB without; warm step "
         f"walls {', '.join(f'{x:.1f}' for x in msr)} against "
         f"{', '.join(f'{x:.1f}' for x in msp)} ms")
@@ -4216,6 +4273,173 @@ def study_paths(device_label, tmp, npz) -> dict:
     return by_path
 
 
+def nondeterminism_warnings(fn) -> list:
+    """The distinct first lines of the warnings that ``fn()`` gives under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (each op
+    that has no deterministic implementation warns), synchronized."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).strip().splitlines()[0][:240] for w in caught})
+
+
+def _train_snapshot(model, opt, state):
+    """Copies of every parameter, momentum trace and counter of a train state."""
+    return ({n: p.detach().clone() for n, p in model.named_parameters()},
+            [t.clone() for t in opt.trace], opt.count, opt.mini_step, state.step)
+
+
+def _train_restore(model, opt, state, snap):
+    params, trace, count, mini_step, step = snap
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(params[n])
+        for t, v in zip(opt.trace, trace):
+            t.copy_(v)
+    opt.count, opt.mini_step, state.step = count, mini_step, step
+
+
+def step_twice(name, model, opt, state, step, batch, draws) -> dict:
+    """``step`` twice from one state, one batch and one draw (the state
+    restored in place between them): every parameter, momentum, counter and
+    metric must be bit for bit the same, the counterpart of the JAX
+    package's ``test_training_is_deterministic``.  Then once more from the
+    same state under ``nondeterminism_warnings``, a diagnostic whose list
+    must be empty (its state is not compared: under it torch picks other
+    algorithms for some ops).  Returns the leaves compared, the leaves the
+    step moved and the diagnostic's warnings."""
+    snap = _train_snapshot(model, opt, state)
+    runs, walls = [], []
+    for _ in range(2):
+        _train_restore(model, opt, state, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, draws)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        runs.append((_train_snapshot(model, opt, state),
+                     {k: v.detach().clone() for k, v in metrics.items()}))
+    (a, ma), (b, mb) = runs
+    differ = [n for n in a[0] if not torch.equal(a[0][n], b[0][n])]
+    differ += [f"momentum {opt.names[i]}" for i, (x, y) in enumerate(zip(a[1], b[1]))
+               if not torch.equal(x, y)]
+    differ += [f"metric {k}" for k in ma if not torch.equal(ma[k], mb[k])]
+    if a[2:] != b[2:]:
+        differ.append(f"counters {a[2:]} / {b[2:]}")
+    moved = sum(not torch.equal(a[0][n], snap[0][n]) for n in a[0])
+    spread = {}
+    for n in differ[:5]:
+        if n in a[0]:
+            upd = (a[0][n] - snap[0][n]).abs().max().item()
+            spread[n] = (a[0][n] - b[0][n]).abs().max().item() / max(upd, 1e-30)
+    del b
+    _train_restore(model, opt, state, snap)
+    diag = nondeterminism_warnings(lambda: step(state, batch, draws))
+    _train_restore(model, opt, state, a)
+    log(f"determinism {name}: two steps from one state: {len(a[0])} parameters, "
+        f"{len(a[1])} momenta, {len(ma)} metrics, "
+        + ("all bit for bit" if not differ else f"{len(differ)} DIFFER: {differ[:8]}; "
+           f"max |diff| / max |update| {spread}")
+        + f" ({moved} parameters moved; total {float(ma['total']):.6f}; walls "
+        f"{', '.join(f'{w:.1f}' for w in walls)} ms); use_deterministic_algorithms "
+        f"warn_only: {len(diag)} warnings: {diag}")
+    if differ:
+        raise AssertionError(f"determinism {name}: two steps from one state differ in "
+                             f"{differ[:8]}")
+    if diag:
+        raise AssertionError(f"determinism {name}: ops without a deterministic "
+                             f"implementation: {diag}")
+    return {"leaves": len(a[0]) + len(a[1]), "moved": moved, "warnings": diag,
+            "walls_ms": walls}
+
+
+def determinism_paths(device_label) -> dict:
+    """Phase 4n: one full-width step of each training path twice from one
+    state (``step_twice``): VGG-16 (5-stage, bf16, ``from_cfg(train=True)``,
+    2 images, one step taken first so that the momenta are live), the CFM
+    step and the DP step at world 1 through NCCL on the same model, and the
+    ResNet-101 COCO configuration's conv5 head (random FrozenBN leaves).
+    Returns the launch counts of the phase by path (``determinism``)."""
+    import torch.distributed as dist
+
+    from mnc_tpu_torch.config import cfg
+    from mnc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mnc_tpu_torch.models.cfm import make_cfm_train_step
+    from mnc_tpu_torch.models.mnc import MNC, MNCArch
+    from mnc_tpu_torch.parallel import data_parallel_train_step, make_mesh
+    from mnc_tpu_torch.train.loop import (TrainState, draw_cfm_randoms, draw_step_randoms,
+                                          make_train_step, train_cfg_from_cfg)
+    from mnc_tpu_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    # the diagnostic sees an op that has no deterministic implementation
+    probe = nondeterminism_warnings(lambda: torch.histc(torch.rand(64, device="cuda")))
+    log(f"determinism: use_deterministic_algorithms warn_only on torch.histc (a probe): "
+        f"{probe}")
+    if not probe:
+        raise AssertionError("determinism: the warn_only diagnostic caught no warning from "
+                             "torch.histc")
+    reset_launch_counts()
+
+    def build(arch):
+        model = MNC(arch, device="cuda", seed=0, train=True)
+        opt = make_optimizer(model, base_lr=cfg.TRAIN.LEARNING_RATE,
+                             momentum=cfg.TRAIN.MOMENTUM, weight_decay=cfg.TRAIN.WEIGHT_DECAY,
+                             gamma=cfg.TRAIN.GAMMA, stepsize=cfg.TRAIN.STEPSIZE,
+                             clip_gradients=cfg.TRAIN.CLIP_GRADIENTS)
+        return model, opt, TrainState.create(model, opt), train_cfg_from_cfg(cfg)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    res = {}
+    arch = MNCArch.from_cfg(train=True)
+    model, opt, state, tc = build(arch)
+    batch = _synthetic_batch(arch, [0, 1])
+    step = make_train_step(model, opt, arch, tc)
+    step(state, _synthetic_batch(arch, [2, 3]), gen)  # live momenta
+    res["VGG-16"] = step_twice("VGG-16 (5-stage, bf16, 2 images)", model, opt, state, step,
+                               batch, draw_step_randoms(gen, arch, tc, 2, 32))
+    # CFM on the same network, each image's ground truth among its segments
+    seg = {"seg_boxes": batch["gt_boxes"], "seg_masks": batch["gt_masks"].float(),
+           "seg_valid": batch["gt_valid"]}
+    cfm_tc = dict(tc, CFM_IOU=cfg.TRAIN.CFM_IOU)
+    res["CFM"] = step_twice("CFM (VGG-16, bf16, 2 images, 32 segments each)", model, opt,
+                            state, make_cfm_train_step(model, opt, arch, cfm_tc),
+                            dict(batch, **seg),
+                            draw_cfm_randoms(gen, arch, cfm_tc, 2, 32, 32))
+    mesh = make_mesh(device="cuda")
+    try:
+        res["DP"] = step_twice("DP at world 1 (NCCL)", model, opt, state,
+                               data_parallel_train_step(model, opt, arch, tc, mesh), batch,
+                               draw_step_randoms(gen, arch, tc, 2, 32))
+    finally:
+        dist.destroy_process_group()
+    del model, opt, state, step, mesh
+    torch.cuda.empty_cache()
+    with coco_cfg(True):
+        arch = MNCArch.from_cfg(train=True)
+        model, opt, state, tc = build(arch)
+        randomize_frozen_bn(model, 3)
+        batch = _synthetic_batch(arch, [0, 1])
+        step = make_train_step(model, opt, arch, tc)
+        step(state, _synthetic_batch(arch, [2, 3]), gen)
+        res["ResNet-101 conv5"] = step_twice(
+            "ResNet-101 COCO conv5 (bf16, 2 images)", model, opt, state, step, batch,
+            draw_step_randoms(gen, arch, tc, 2, 32))
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    log(f"phase 4n (determinism) on {device_label}: {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}")
+    return {"determinism": counts}
+
+
 CHECKS = {"roi_warp": check_roi_warp, "roi_warp_bwd": check_roi_warp_bwd, "nms": check_nms,
           "paste_binarize": check_paste, "block1": check_block1, "gemm_s8": check_gemm_s8,
           "quant_act": check_quant_act}
@@ -4227,8 +4451,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of mnc_tpu_torch on one GPU")
     ap.add_argument("--only", default=None, help="comma-separated kernels: build and "
                     "check only these, skip the main paths (for bringing a kernel up); "
-                    "'parallel' or 'tools': build every kernel and run phase 4k, or 4l and 4m, "
-                    "alone")
+                    "'parallel', 'tools' or 'determinism': build every kernel and run phase "
+                    "4k, 4l and 4m, or 4n alone")
     ap.add_argument("--parallel-worker", nargs=4, default=None,
                     metavar=("RANK", "WORLD", "INIT_FILE", "OUT_DIR"),
                     help="(internal) one rank of phase 4k's gloo group")
@@ -4254,7 +4478,7 @@ def main(argv=None) -> int:
 
     from mnc_tpu_torch import kernels, native
 
-    phase_only = args.only in ("parallel", "tools")
+    phase_only = args.only in PHASES
     only = args.only.split(",") if args.only and not phase_only else None
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
@@ -4289,15 +4513,20 @@ def main(argv=None) -> int:
     return 0
 
 
+PHASES = ("parallel", "tools", "determinism")  # what --only runs alone, as a phase
+
+
 def main_paths(g, smi, only_phase=None) -> dict:
     """Phase 4: each main path with the launch counters zeroed just before
     it and read just after; returns the counts by path.  ``only_phase``
-    "parallel" or "tools" runs phase 4k, or 4l and 4m, alone."""
+    (one of ``PHASES``) runs phase 4k, 4l and 4m, or 4n alone."""
     from mnc_tpu_torch.models.mnc import MNCArch
 
     label = f"{torch.cuda.get_device_name(0)} ({smi})"
     vgg = MNCArch(pre_nms_top_n=6000, post_nms_top_n=304, nms_chunk=256,
                   compute_dtype=torch.bfloat16)
+    if only_phase == "determinism":
+        return determinism_paths(label)
     if only_phase:
         with tempfile.TemporaryDirectory() as tmp:
             if only_phase == "parallel":
@@ -4384,6 +4613,8 @@ def main_paths(g, smi, only_phase=None) -> dict:
         # phase 4l: the train -> detect -> mAP^r tools, remat, voting, roi_pool
         by_path.update(tools_paths(label, tmp, vgg))
     torch.cuda.empty_cache()
+    # phase 4n: two steps of every training path from one state, bit for bit
+    by_path.update(determinism_paths(label))
     return by_path
 
 
@@ -4429,8 +4660,9 @@ def report_kernels(results, by_path, t_start) -> None:
     real_train += ("e2e_train", "e2e_remat")
     real_test += ("e2e_eval", "e2e_int8_eval", "e2e_remat") + ablation
     int8 += ("e2e_int8_eval", "ablation_5stage_int8")
-    # phase 4m: the study tools
+    # phase 4m: the study tools; phase 4n: every training path twice
     real_test += ("parity_test_net", "workingset", "crowd")
+    training += ("determinism",)
     must = {"roi_warp": serving + training + int8 + cfm + ("cfm_train",) + real_train
             + real_test,
             "roi_warp_bwd": training + ("cfm_train",) + real_train,

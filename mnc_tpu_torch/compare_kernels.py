@@ -7,7 +7,7 @@ inside one process.
     python3 -m mnc_tpu_torch.compare_kernels [--parent-csrc DIR] [--only paste,block1]
         [--roi-warp-variant=-DFLAG] [--roi-warp-plan cell_chunks=2,band_rows=13]
         [--roi-warp-source LABEL=PATH]
-        [--nms-variant=-DMNC_NMS_CLUSTER=8] [--bwd-variant=-DMNC_RWB_THREADS=1024]
+        [--nms-variant=-DMNC_NMS_CLUSTER=8] [--bwd-variant=-DMNC_RWB_TILE_H=8]
         [--paste-variant=-DMNC_PASTE_BAND=64] [--block1-variant=-DMNC_B1_PRODUCERS=1]
         [--gemm-s8-variant=-DMNC_S8_STAGES_128=3] [--bwd-source LABEL=PATH]
         [--paste-source LABEL=PATH] [--block1-source LABEL=PATH]
@@ -30,7 +30,9 @@ every int8 layer's input of both trunks, ``chip_smoke.int8_layer_inputs``).
 ``roi_warp.cu``, ``nms.cu``, ``roi_warp_bwd.cu``, ``paste.cu``, ``block1.cu``,
 ``gemm_s8.cu`` and ``quant_act.cu`` found there is built and timed.
 ``roi_warp.cu`` must have the first port's C interface (``93b6a8c``: a block
-per output row, no plan); ``nms.cu`` and ``roi_warp_bwd.cu`` today's;
+per output row, no plan); ``nms.cu`` today's; ``roi_warp_bwd.cu`` the
+atomic version's (``5b489d4``: one float atomic per footprint cell into a
+zeroed f32 map, which the caller casts);
 ``paste.cu`` and ``block1.cu`` the first port's (no extent scratch; HWIO weights),
 ``gemm_s8.cu`` its first version's (``2cac255``: unpacked weights, no plan),
 ``quant_act.cu`` its first version's (``c02edfa``: two launches a tensor, a
@@ -71,7 +73,9 @@ PARENT_ABI = {  # the C interfaces of the parent commit's sources
     "roi_warp": ("roi_warp.cu", "mnc_roi_warp_fwd",
                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "nms": _build.KERNEL_ABI["nms"],
-    "roi_warp_bwd": _build.KERNEL_ABI["roi_warp_bwd"],
+    # A′'s atomic version (5b489d4): dF added into a zeroed f32 map, no scratch
+    "roi_warp_bwd": ("roi_warp_bwd.cu", "mnc_roi_warp_bwd",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "paste_binarize": ("paste.cu", "mnc_paste_binarize",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "block1": _build.KERNEL_ABI["block1"],
@@ -194,27 +198,43 @@ def nms_callers(args):
 
 
 def bwd_callers(args):
-    """{label: f(grad, feat, rois, scale) -> (dF f32, d rois)}."""
-    def make(fn):
+    """{label: f(grad, feat, rois, scale) -> (dF in the feature dtype, d rois)}."""
+    from mnc_tpu_torch.kernels import ROI_WARP_BWD_EXTRA_UNITS, roi_warp_bwd_scratch
+
+    def make(fn, atomic):
         def call(go, f, rois, scale):
             b, h, w, c = f.shape
             n, (ph, pw) = rois.shape[1], go.shape[2:4]
-            dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=f.device)
+            dt = 0 if f.dtype == torch.float32 else 1
             out = torch.empty((b, n, 4), dtype=torch.float32, device=f.device)
+            if atomic:  # the parent: a zeroed f32 map, cast after
+                dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=f.device)
+                _ok(fn(go.data_ptr(), f.data_ptr(), rois.data_ptr(), dfeat.data_ptr(),
+                       out.data_ptr(), b, h, w, c, n, ph, pw, scale, dt, _stream()),
+                    "roi_warp_bwd")
+                return dfeat.to(f.dtype), out
+            # scratch for any tile of at most 32 cells (a --bwd-variant may change the
+            # tile): lists of one-cell tiles, partials of E 32-cell units beyond the map
+            n_ints, _ = roi_warp_bwd_scratch(b, n, (h, w), c, (ph, pw))
+            n_ints += b * h * w * (n + 4)
+            n_partial = (b * h * w + ROI_WARP_BWD_EXTRA_UNITS * 32) * c + b * n * (ph + pw)
+            dfeat = torch.empty((b, h, w, c), dtype=f.dtype, device=f.device)
+            ints = torch.empty(n_ints, dtype=torch.int32, device=f.device)
+            partial = torch.empty(n_partial, dtype=torch.float32, device=f.device)
             _ok(fn(go.data_ptr(), f.data_ptr(), rois.data_ptr(), dfeat.data_ptr(),
-                   out.data_ptr(), b, h, w, c, n, ph, pw, scale,
-                   0 if f.dtype == torch.float32 else 1, _stream()), "roi_warp_bwd")
-            return dfeat.to(f.dtype), out
+                   out.data_ptr(), ints.data_ptr(), partial.data_ptr(), b, h, w, c, n, ph, pw,
+                   scale, dt, _stream()), "roi_warp_bwd")
+            return dfeat, out
         return call
 
     abi = _build.KERNEL_ABI["roi_warp_bwd"]
     callers = {}
     parent = _parent(args, "roi_warp_bwd")
     if parent:
-        callers["parent"] = make(load(parent, PARENT_ABI["roi_warp_bwd"]))
+        callers["parent"] = make(load(parent, PARENT_ABI["roi_warp_bwd"]), True)
     for suffix, src, flags in _sources(args, "roi_warp_bwd", args.bwd_variant,
                                        args.bwd_source):
-        callers[f"register sums {suffix}".strip()] = make(load(src, abi, flags))
+        callers[f"tile gather {suffix}".strip()] = make(load(src, abi, flags), False)
     return callers
 
 
@@ -493,11 +513,13 @@ def main(argv=None) -> int:
         report["roi_warp_bwd"] = {}
         callers = bwd_callers(args)
         from mnc_tpu_torch.ops.roi_warp import roi_warp_plain
-        b, n, (h, w, c), out_hw, s = 2, 128, (40, 64, 512), (14, 14), 1.0 / 16
-        feat = torch.randn(b, h, w, c, generator=g, device="cuda")
-        gout = torch.randn(b, n, *out_hw, c, generator=g, device="cuda")
-        f16, go16 = feat.to(torch.bfloat16), gout.to(torch.bfloat16)
-        for set_label, rois in cs._bwd_box_sets(g, b, n).items():
+        b, n, (h, w), out_hw, s = 2, 128, (40, 64), (14, 14), 1.0 / 16
+        for c, (set_label, rois) in [(c, item) for c in (512, 1024)
+                                     for item in cs._bwd_box_sets(g, b, n).items()]:
+            set_label = f"C={c} {set_label}"
+            feat = torch.randn(b, h, w, c, generator=g, device="cuda")
+            gout = torch.randn(b, n, *out_hw, c, generator=g, device="cuda")
+            f16, go16 = feat.to(torch.bfloat16), gout.to(torch.bfloat16)
             fp, rp = feat.clone().requires_grad_(), rois.clone().requires_grad_()
             wf, wr = torch.autograd.grad(roi_warp_plain(fp, rp, out_hw, s), (fp, rp), gout)
             for label, fn in callers.items():
@@ -507,10 +529,15 @@ def main(argv=None) -> int:
                     wrong.append(f"roi_warp_bwd [{label}] ({set_label}): f32 gradients off "
                                  f"by {ef:.3e} (dF), {er:.3e} (d rois)")
                     cs.log(wrong[-1])
+                again = fn(gout, feat, rois, s)
+                cs.log(f"roi_warp_bwd [{set_label}] [{label}]: two f32 calls bit-equal: dF "
+                       f"{torch.equal(again[0], gf)}, d rois {torch.equal(again[1], gr)}")
             ms = there_and_back(callers, lambda fn: cs.cuda_ms(lambda: fn(go16, f16, rois, s)))
             for label in callers:
                 cs.log(f"roi_warp_bwd bf16 [{set_label}] [{label}]: ms {ms[label]}")
             report["roi_warp_bwd"][set_label] = ms
+            profiled("roi_warp_bwd", set_label, callers,
+                     lambda fn: fn(go16, f16, rois, s))
 
     if "paste" in only:
         report["paste"] = {}

@@ -27,9 +27,11 @@ Nothing here falls back.
                            tensor held in parts: the spatial trunk)
 
 Kernel A's plan (``plan_roi_warp``) and taps (``roi_warp_taps``), kernel
-E's planner (``plan_gemm_s8``) and weight packing (``pack_gemm_s8_weight``)
-and kernel F's plan (``plan_quant_act``) are plain Python and torch, tested
-on the CPU.
+A′'s tile lists and plan (``roi_warp_bwd_lists``, ``roi_warp_bwd_plan``,
+plain twins of its first two launches), kernel E's planner
+(``plan_gemm_s8``) and weight packing (``pack_gemm_s8_weight``) and kernel
+F's plan (``plan_quant_act``) are plain Python and torch, tested on the
+CPU.
 """
 
 from __future__ import annotations
@@ -296,16 +298,99 @@ def roi_warp_cuda(features: torch.Tensor, rois: torch.Tensor, out_hw,
     return out
 
 
-def roi_warp_bwd_cuda(grad_out: torch.Tensor, features: torch.Tensor, rois: torch.Tensor,
-                      spatial_scale: float):
-    """Gradients of :func:`roi_warp_cuda`: grad_out (B, N, PH, PW, C) and
-    features (B, H, W, C), both f32 or both bf16, rois (B, N, 4) f32 →
-    (d features (B, H, W, C) in the feature dtype, d rois (B, N, 4) f32).
+ROI_WARP_BWD_TILE = (4, 4)  # csrc/roi_warp_bwd.cu MNC_RWB_TILE_H, MNC_RWB_TILE_W
+ROI_WARP_BWD_EXTRA_UNITS = 512  # MNC_RWB_EXTRA_UNITS: E, the splits beyond one a tile
+ROI_WARP_BWD_MAX_SPLITS = 32  # MNC_RWB_MAX_SPLITS
 
-    d features is summed per RoI in registers, added to an f32 map with one
-    atomic per footprint cell and cast once, so its last bits vary from run
-    to run; d rois is reduced in a fixed order inside the kernel and is
-    deterministic."""
+
+def roi_warp_bwd_tiles(map_hw) -> tuple[int, int]:
+    """Kernel A′'s dF tiles of a (H, W) map: (tiles down, tiles across),
+    tile t = row * across + column."""
+    (h, w), (th, tw) = map_hw, ROI_WARP_BWD_TILE
+    return -(-h // th), -(-w // tw)
+
+
+def roi_warp_bwd_lists(rois: torch.Tensor, out_hw, spatial_scale: float, map_hw):
+    """Plain twin of kernel A′'s tile lists (its first launch): for (B, N, 4)
+    rois, (counts (B, T) int64, lists (B, T, N) int64): the RoIs whose taps
+    can touch tile t, in ascending index, then -1.
+
+    A RoI can touch the rows floor(c) - 1 .. floor(c) + 1 around the first
+    and the last bin center c along y (the centers are monotone in the
+    bin), clipped to the map, the centers clamped to [-2, H + 1] first (the
+    clipped range is the same); likewise along x.  A NaN center touches
+    nothing.  The f32 arithmetic is the kernel's."""
+    from mnc_tpu_torch.ops.roi_warp import bin_centers
+
+    (ph, pw), (h, w) = out_hw, map_hw
+    (th, tw), (nth, ntw) = ROI_WARP_BWD_TILE, roi_warp_bwd_tiles(map_hw)
+
+    def reaches(axis, bins, size, tile, n_tiles):  # (B, N, n_tiles) bool
+        cen = bin_centers(rois, bins, spatial_scale, axis)
+        e0, e1 = cen[..., 0], cen[..., -1]
+        first = torch.floor(torch.minimum(e0, e1).clamp(-2.0, size + 1.0)).long() - 1
+        last = torch.floor(torch.maximum(e0, e1).clamp(-2.0, size + 1.0)).long() + 1
+        a = torch.arange(n_tiles, device=rois.device) * tile
+        b = torch.clamp(a + tile, max=size) - 1
+        ok = ~(e0.isnan() | e1.isnan())
+        return (first[..., None] <= b) & (last[..., None] >= a) & ok[..., None]
+
+    ry, rx = reaches(0, ph, h, th, nth), reaches(1, pw, w, tw, ntw)
+    touch = (ry[:, :, :, None] & rx[:, :, None, :]).flatten(2).transpose(1, 2)  # (B, T, N)
+    n = rois.shape[1]
+    idx = torch.arange(n, device=rois.device).expand_as(touch)
+    lists = torch.sort(torch.where(touch, idx, n), dim=-1).values
+    return touch.sum(-1), torch.where(lists < n, lists, -1)
+
+
+def roi_warp_bwd_plan(counts: torch.Tensor):
+    """Plain twin of kernel A′'s plan (its second launch): for the lists'
+    counts (any shape, tiles in order), (splits, unit bases), both flat
+    int64 over the tiles: a tile of ``count`` RoIs gets floor(count · E /
+    total) splits, at least 1, at most ``ROI_WARP_BWD_MAX_SPLITS`` and
+    ``count``; split s of a tile walks its list's entries
+    [s · count // splits, (s + 1) · count // splits), and its units are
+    numbered from its unit base on, tile after tile."""
+    c = counts.flatten().long()
+    total = max(int(c.sum()), 1)
+    splits = torch.minimum(c * ROI_WARP_BWD_EXTRA_UNITS // total,
+                           c.clamp(max=ROI_WARP_BWD_MAX_SPLITS)).clamp(min=1)
+    return splits, torch.cumsum(splits, 0) - splits
+
+
+def roi_warp_bwd_scratch(b: int, n: int, map_hw, c: int, out_hw) -> tuple[int, int]:
+    """Kernel A′'s scratch for b maps of ``map_hw`` and c channels, n RoIs
+    an image of ``out_hw`` bins: (int32 elements: lists, counts, splits,
+    unit bases, the unit count, units; f32 elements: the splits' partial
+    sums, then the bin centers)."""
+    nth, ntw = roi_warp_bwd_tiles(map_hw)
+    bt = b * nth * ntw
+    units = bt + ROI_WARP_BWD_EXTRA_UNITS
+    th, tw = ROI_WARP_BWD_TILE
+    return bt * n + 3 * bt + 1 + units, units * th * tw * c + b * n * sum(out_hw)
+
+
+def roi_warp_bwd_read_lists(ints: torch.Tensor, b: int, n: int, map_hw):
+    """Kernel A′'s lists and plan from its int32 scratch (``_roi_warp_bwd``
+    with ``keep_scratch``): (counts (B, T), lists (B, T, N) with -1 past
+    each count, splits (B T,), unit bases (B T,)), as the plain twins give
+    them."""
+    nth, ntw = roi_warp_bwd_tiles(map_hw)
+    t = nth * ntw
+    bt = b * t
+    ints = ints.long()
+    lists = ints[:bt * n].view(b, t, n)
+    counts = ints[bt * n:bt * n + bt].view(b, t)
+    splits = ints[bt * n + bt:bt * n + 2 * bt]
+    unit_base = ints[bt * n + 2 * bt:bt * n + 3 * bt]
+    pos = torch.arange(n, device=ints.device)
+    return counts, torch.where(pos < counts[..., None], lists, -1), splits, unit_base
+
+
+def _roi_warp_bwd(grad_out: torch.Tensor, features: torch.Tensor, rois: torch.Tensor,
+                  spatial_scale: float, keep_scratch: bool = False):
+    """Checks and launches kernel A′; (d features, d rois), and its int32
+    scratch (the lists and the plan) where ``keep_scratch``."""
     _check(features, "features", (torch.float32, torch.bfloat16), 4)
     _check(grad_out, "grad_out", (features.dtype,), 5, features.device)
     _check(rois, "rois", (torch.float32,), 3, features.device)
@@ -318,16 +403,42 @@ def roi_warp_bwd_cuda(grad_out: torch.Tensor, features: torch.Tensor, rois: torc
     vec = 4 if features.dtype == torch.float32 else 8
     if c % vec:
         raise ValueError(f"channels ({c}) must be a multiple of {vec}")
-    if pw > 32 or ph + pw > 512:
-        raise ValueError(f"output size {(ph, pw)}: at most 32 columns and 512 rows + columns")
-    dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=features.device)
-    drois = torch.empty((b, n, 4), dtype=torch.float32, device=features.device)
-    _launch("roi_warp_bwd", features.device, grad_out.data_ptr(), features.data_ptr(),
-            rois.data_ptr(), dfeat.data_ptr(), drois.data_ptr(), b, h, w, c, n, ph, pw,
-            float(spatial_scale), 0 if features.dtype == torch.float32 else 1,
+    if ph + pw > 512 or n > 65535 or b > 65535:
+        raise ValueError(f"output size {(ph, pw)}, {b} x {n} RoIs: at most 512 rows + "
+                         f"columns and 65535 images and RoIs an image")
+    dev = features.device
+    if b * n == 0:  # nothing reaches the maps; no launch
+        out = (torch.zeros_like(features), torch.zeros((b, n, 4), device=dev))
+        return (*out, None) if keep_scratch else out
+    n_ints, n_partial = roi_warp_bwd_scratch(b, n, (h, w), c, (ph, pw))
+    dfeat = torch.empty((b, h, w, c), dtype=features.dtype, device=dev)
+    drois = torch.empty((b, n, 4), dtype=torch.float32, device=dev)
+    ints = torch.empty(n_ints, dtype=torch.int32, device=dev)
+    partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
+    _launch("roi_warp_bwd", dev, grad_out.data_ptr(), features.data_ptr(), rois.data_ptr(),
+            dfeat.data_ptr(), drois.data_ptr(), ints.data_ptr(), partial.data_ptr(), b, h, w,
+            c, n, ph, pw, float(spatial_scale), 0 if features.dtype == torch.float32 else 1,
             _stream(features))
-    roi_warp_bwd_cuda.launches += 1
-    return dfeat.to(features.dtype), drois
+    return (dfeat, drois, ints) if keep_scratch else (dfeat, drois)
+
+
+def roi_warp_bwd_cuda(grad_out: torch.Tensor, features: torch.Tensor, rois: torch.Tensor,
+                      spatial_scale: float):
+    """Gradients of :func:`roi_warp_cuda`: grad_out (B, N, PH, PW, C) and
+    features (B, H, W, C), both f32 or both bf16, rois (B, N, 4) f32 →
+    (d features (B, H, W, C) in the feature dtype, d rois (B, N, 4) f32).
+
+    Both are summed in an order that the inputs alone fix, so two calls on
+    the same inputs agree bit for bit: d rois by a fixed-order reduction in
+    one block a RoI; d features by map tile, over the RoIs that
+    :func:`roi_warp_bwd_lists` lists for the tile in ascending index (cut
+    into the splits of :func:`roi_warp_bwd_plan`, added in split order), in
+    f32, rounded to the feature dtype once.  Four CUDA launches (lists and d
+    rois, plan, dF, the splits' sum), counted once."""
+    out = _roi_warp_bwd(grad_out, features, rois, spatial_scale)
+    if rois.shape[0] * rois.shape[1]:
+        roi_warp_bwd_cuda.launches += 1
+    return out
 
 
 def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,

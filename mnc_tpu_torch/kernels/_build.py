@@ -30,7 +30,7 @@ KERNEL_ABI = {
     "roi_warp": ("roi_warp.cu", "mnc_roi_warp_fwd",
                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P]),
     "roi_warp_bwd": ("roi_warp_bwd.cu", "mnc_roi_warp_bwd",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+                     [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
     "nms": ("nms.cu", "mnc_nms_keep", [_P, _P, _P, _I, _I, _F, _I, _P]),
     "paste_binarize": ("paste.cu", "mnc_paste_binarize",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),

@@ -28,7 +28,8 @@ import torch
 from mnc_tpu_torch.models.mnc import MNC, MNCArch, linear_resize_matrix, stage_bridge
 from mnc_tpu_torch.pipeline.inference import PostCfg, postprocess_detections
 from mnc_tpu_torch.train import targets as T
-from mnc_tpu_torch.train.loop import CfmDraws, TrainState, cls_bbox_losses, draw_cfm_randoms
+from mnc_tpu_torch.train.loop import (CfmDraws, TrainState, cls_bbox_losses, deterministic_cudnn,
+                                      draw_cfm_randoms)
 from mnc_tpu_torch.train.optim import CaffeSGD
 
 
@@ -151,7 +152,8 @@ def build_cfm_train_step(model: MNC, opt: CaffeSGD, arch: MNCArch, train_cfg: di
     ``train.loop.build_train_step``: ``batch`` (see :func:`cfm_loss`) holds
     tensors on the model's device; ``draws`` is a ``CfmDraws`` or a
     ``torch.Generator`` to draw them from; the model and the solver are
-    updated in place; ``metrics`` are 0-dim tensors on the device."""
+    updated in place, under ``deterministic_cudnn``; ``metrics`` are 0-dim
+    tensors on the device."""
 
     def step(state: TrainState, batch: dict, draws):
         if isinstance(draws, torch.Generator):
@@ -160,9 +162,10 @@ def build_cfm_train_step(model: MNC, opt: CaffeSGD, arch: MNCArch, train_cfg: di
                                      1 if single else batch["image"].shape[0],
                                      batch["seg_boxes"].shape[-2],
                                      batch["gt_boxes"].shape[-2], model.device)
-        total, metrics = cfm_loss(model, batch, draws, arch, train_cfg)
-        total.backward()
-        opt.step()
+        with deterministic_cudnn():
+            total, metrics = cfm_loss(model, batch, draws, arch, train_cfg)
+            total.backward()
+            opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

@@ -104,9 +104,11 @@ def _roi_warp_op_fake(features, rois, out_h, out_w, spatial_scale):
 class RoIWarpFunction(torch.autograd.Function):
     """Kernel A forward, kernel A′ backward (CUDA tensors only).
 
-    The gradient to the features is summed per RoI in registers and added
-    to an f32 map with one atomic per cell the RoI touches, so its last bits
-    vary from run to run; the gradient to the rois is deterministic.
+    Both gradients are summed in an order that the inputs alone fix, so a
+    backward on the same inputs gives the same bits every time: the
+    gradient to the features by map tile, over the RoIs listed for the tile
+    in ascending index (``kernels.roi_warp_bwd_lists``), in f32, rounded
+    once; the gradient to the rois by a fixed-order reduction per RoI.
     Subgradients follow the hat form max(0, 1 - |c - h|) as JAX (and
     :func:`interp_matrix` under autograd) differentiate it: a tap outside
     the map contributes nothing; at an integer coordinate c the tap at c has

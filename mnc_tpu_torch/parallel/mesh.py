@@ -237,7 +237,7 @@ def sharded_train_step(model, opt, arch, train_cfg: dict, mesh, axis: str,
     """The step of :func:`data_parallel_train_step`; ``local_draws`` maps
     this rank's draws further (the TP step slices the keep-masks) and
     ``grad_sq_norm`` goes to ``opt.step``."""
-    from mnc_tpu_torch.train.loop import draw_step_randoms, mnc_loss
+    from mnc_tpu_torch.train.loop import deterministic_cudnn, draw_step_randoms, mnc_loss
 
     group, n, i = mesh.get_group(axis), axis_size(mesh, axis), axis_index(mesh, axis)
     anchors = model.anchors
@@ -251,11 +251,12 @@ def sharded_train_step(model, opt, arch, train_cfg: dict, mesh, axis: str,
         draws = slice_draws(draws, i * b, b)
         if local_draws is not None:
             draws = local_draws(draws)
-        total, metrics = mnc_loss(model, batch, draws, arch, anchors, train_cfg)
-        total.backward()
-        reduce_gradients(model, group, n, layout)
-        metrics = reduce_metrics(metrics, group, n)
-        opt.step(grad_sq_norm=grad_sq_norm)
+        with deterministic_cudnn():
+            total, metrics = mnc_loss(model, batch, draws, arch, anchors, train_cfg)
+            total.backward()
+            reduce_gradients(model, group, n, layout)
+            metrics = reduce_metrics(metrics, group, n)
+            opt.step(grad_sq_norm=grad_sq_norm)
         state.step += 1
         return state, metrics
 

@@ -22,14 +22,21 @@ prints, for one step of ``--batch`` images:
 - the device's busy time in one more step, traced by ``torch.profiler`` (the
   sum of kernel times on the one stream), and the idle share of the median
   wall time that leaves;
-- the kernels that take the most device time, by name.
+- the kernels that take the most device time, by name;
+- what holding cuDNN to deterministic algorithms costs (every train step of
+  the port runs under ``train.loop.deterministic_cudnn``): ``--iters`` steps
+  each way, interleaved (with, without, without, with, ...), their median
+  walls, and one traced step each way, its device busy time.
 
-It needs a GPU and exits with an error without one.
+Every step but the comparison's "without" runs under the setting, as the
+port's train steps do.  It needs a GPU and exits with an error without
+one.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import subprocess
 import time
@@ -39,7 +46,8 @@ import torch
 from mnc_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
 from mnc_tpu_torch.data.synthetic import SyntheticShapes
 from mnc_tpu_torch.models.mnc import MNC, MNCArch
-from mnc_tpu_torch.train.loop import draw_step_randoms, mnc_loss, train_cfg_from_cfg
+from mnc_tpu_torch.train.loop import (deterministic_cudnn, draw_step_randoms, mnc_loss,
+                                      train_cfg_from_cfg)
 from mnc_tpu_torch.train.optim import make_optimizer
 
 
@@ -78,15 +86,16 @@ def main() -> None:
                 for k, v in data.batch(range(i * args.batch, (i + 1) * args.batch)).items()}
                for i in range(args.iters + 2)]
 
-    def one_step(batch, mark=None):
+    def one_step(batch, mark=None, deterministic=True):
         draws = draw_step_randoms(gen, arch, train_cfg, args.batch, cfg.STATIC.MAX_GT)
         if mark:
             mark("draws")
-        total, _ = mnc_loss(model, batch, draws, arch, model.anchors, train_cfg, mark)
-        total.backward()
-        if mark:
-            mark("backward")
-        opt.step()
+        with deterministic_cudnn() if deterministic else contextlib.nullcontext():
+            total, _ = mnc_loss(model, batch, draws, arch, model.anchors, train_cfg, mark)
+            total.backward()
+            if mark:
+                mark("backward")
+            opt.step()
         if mark:
             mark("optimizer")
 
@@ -126,12 +135,16 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_step(batches[-2])
-        torch.cuda.synchronize()
-    # device-side rows only (the aten:: rows repeat their kernels' time)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    def traced(deterministic=True):
+        """One traced step: the device-side rows (the aten:: rows repeat
+        their kernels' time)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one_step(batches[-2], deterministic=deterministic)
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+    rows = traced()
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     n_kernels = sum(e.count for e in rows)
     print(f"device busy {busy_ms:.3f} ms per step in {n_kernels} kernel launches (traced); "
@@ -140,6 +153,26 @@ def main() -> None:
     print("top kernels by device time in the profiled step:")
     for e in rows[:18]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+    # the cost of deterministic cuDNN: interleaved steps with and without it
+    one_step(batches[-1], deterministic=False)  # warm-up of the other algorithms
+    walls_by = {True: [], False: []}
+    for i in range(2 * args.iters):
+        det = (i % 4) in (0, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(batches[i % args.iters], deterministic=det)
+        torch.cuda.synchronize()
+        walls_by[det].append((time.perf_counter() - t0) * 1e3)
+    busy = {det: sum(e.self_device_time_total for e in traced(det)) / 1e3
+            for det in (True, False)}
+    med = {det: sorted(w)[len(w) // 2] for det, w in walls_by.items()}
+    for det, name in ((True, "with"), (False, "without")):
+        print(f"{name} deterministic cuDNN: wall median {med[det]:.3f} ms of "
+              + ", ".join(f"{w:.3f}" for w in walls_by[det])
+              + f"; device busy {busy[det]:.3f} ms (one traced step)")
+    print(f"deterministic cuDNN: wall {med[True] / med[False]:.3f}x, device busy "
+          f"{busy[True] / busy[False]:.3f}x the step without it")
 
 
 if __name__ == "__main__":

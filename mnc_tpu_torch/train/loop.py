@@ -23,6 +23,7 @@ images.  All randomness (subsampling ranks, dropout keep-masks) enters as a
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -264,6 +265,29 @@ def train_cfg_from_cfg(cfg) -> dict:
         BBOX_INSIDE_WEIGHTS=tuple(t.BBOX_INSIDE_WEIGHTS))
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Holds cuDNN to deterministic algorithms for a training forward and
+    backward: inside, ``torch.backends.cudnn.deterministic`` is True and
+    ``benchmark`` False; on leaving, both are back to what they were, and
+    no other flag is touched (``cudnn.flags(...)`` would reset ``enabled``
+    and ``allow_tf32`` to its own defaults).
+
+    With it, a train step on the card is a pure function of (state, batch,
+    draws), as the JAX package's is: cuDNN's nondeterministic backward
+    algorithms sum a weight's gradient in a run-dependent order, and
+    ``benchmark`` may pick another algorithm from one process to the next.
+    Every train step of the port enters it; on the CPU it changes
+    nothing."""
+    cudnn = torch.backends.cudnn
+    before = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = before
+
+
 def build_train_step(model: MNC, opt: CaffeSGD, arch: MNCArch, train_cfg: dict):
     """The train step: (state, batch, draws) → (state, metrics).
 
@@ -271,7 +295,8 @@ def build_train_step(model: MNC, opt: CaffeSGD, arch: MNCArch, train_cfg: dict):
     :func:`mnc_loss`); ``draws`` is a :class:`StepDraws`, or a
     ``torch.Generator`` to draw them from.  ``metrics`` are 0-dim tensors on
     the device (no host synchronisation happens here).  The model and the
-    solver are updated in place.
+    solver are updated in place, under :func:`deterministic_cudnn`: two
+    steps from one state, batch and draws give the same bits.
     """
     anchors = model.anchors
 
@@ -281,9 +306,10 @@ def build_train_step(model: MNC, opt: CaffeSGD, arch: MNCArch, train_cfg: dict):
             draws = draw_step_randoms(draws, arch, train_cfg,
                                       1 if single else batch["image"].shape[0],
                                       batch["gt_boxes"].shape[-2], model.device)
-        total, metrics = mnc_loss(model, batch, draws, arch, anchors, train_cfg)
-        total.backward()
-        opt.step()
+        with deterministic_cudnn():
+            total, metrics = mnc_loss(model, batch, draws, arch, anchors, train_cfg)
+            total.backward()
+            opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

@@ -164,20 +164,19 @@ def _axis_taps(lo, hi, bins, size, scale):
 
 
 def footprint_model(feat, rois, cot, out_hw, scale):
-    """Model of kernel A′ for one map: per RoI the footprint's columns (the
-    distinct feature columns its bins touch, each with its bins q and their
-    weights), per column a walk down the bins p with two running sums (rows
-    floor and floor + 1) that are added to dF once when the taps move on; d
-    rois from the three taps per axis.  Returns (dF, d rois, adds): adds[n] is
-    how many cells of dF RoI n touched."""
+    """Model of kernel A′ for one map: d rois from the three taps per axis
+    (its d rois items), dF by map tile in the kernel's order (the tile lists
+    and splits of ``kernels.roi_warp_bwd_lists`` / ``roi_warp_bwd_plan``;
+    ``tests/test_torch_train_determinism.py::tile_gather_dfeat``).  Returns
+    (dF, d rois, tiles): tiles[n] is how many tile lists hold RoI n."""
+    from mnc_tpu_torch.kernels import roi_warp_bwd_lists
+    from tests.test_torch_train_determinism import tile_gather_dfeat
+
     h, w, _ = feat.shape
-    ph, pw = out_hw
-    dfeat = np.zeros_like(feat, dtype=np.float64)
     drois = np.zeros((len(rois), 4))
-    adds = []
     for n, (x1, y1, x2, y2) in enumerate(rois.astype(np.float32)):
-        ty = _axis_taps(y1, y2, ph, h, scale)
-        tx = _axis_taps(x1, x2, pw, w, scale)
+        ty = _axis_taps(y1, y2, out_hw[0], h, scale)
+        tx = _axis_taps(x1, x2, out_hw[1], w, scale)
         g = cot[n].astype(np.float64)
         for p, (iy, wy, dy, gy) in enumerate(ty):
             for q, (ix, wx, dx, gx) in enumerate(tx):
@@ -190,43 +189,11 @@ def footprint_model(feat, rois, cot, out_hw, scale):
                         dyc += dy[ky] * wx[kx] * dot
                         dxc += wy[ky] * dx[kx] * dot
                 drois[n] += scale * np.array([dxc * (1 - gx), dyc * (1 - gy), dxc * gx, dyc * gy])
-        cols = {}  # column -> {q: weight}; taps 1 and 2 carry the weights
-        for q, (ix, wx, _, _) in enumerate(tx):
-            for k in (1, 2):
-                if wx[k] > 0:
-                    cols.setdefault(ix[k], {})[q] = wx[k]
-        count = 0
-        for col, bins in cols.items():
-            cur, acc, dirty = None, [0.0, 0.0], [False, False]
-
-            def flush(i):
-                nonlocal count
-                if dirty[i] and 0 <= cur + i < h:
-                    dfeat[cur + i, col] += acc[i]
-                    count += 1
-
-            for p, (iy, wy, _, _) in enumerate(ty):
-                a0, a1 = wy[1], wy[2]
-                if a0 == 0 and a1 == 0:
-                    continue
-                row = iy[1] if a0 > 0 else iy[2] - 1
-                if row != cur:
-                    if cur is not None:
-                        flush(0)
-                        if row == cur + 1:
-                            acc, dirty = [acc[1], 0.0], [dirty[1], False]
-                        else:
-                            flush(1)
-                            acc, dirty = [0.0, 0.0], [False, False]
-                    cur = row
-                s = sum(wq * g[p, q] for q, wq in bins.items())
-                acc = [acc[0] + a0 * s, acc[1] + a1 * s]
-                dirty = [dirty[0] or a0 > 0, dirty[1] or a1 > 0]
-            if cur is not None:
-                flush(0)
-                flush(1)
-        adds.append(count)
-    return dfeat, drois, adds
+    r = torch.tensor(rois)[None]
+    dfeat = tile_gather_dfeat(torch.tensor(cot)[None], r, out_hw, scale, (h, w))[0].numpy()
+    _, lists = roi_warp_bwd_lists(r, out_hw, scale, (h, w))
+    tiles = [int((lists[0] == n).sum()) for n in range(len(rois))]
+    return dfeat, drois, tiles
 
 
 _BOXES = {  # on a 48 x 64 image (12 x 16 cells at scale 1/4)
@@ -243,9 +210,10 @@ _BOXES = {  # on a 48 x 64 image (12 x 16 cells at scale 1/4)
 @pytest.mark.parametrize("out_hw", [(4, 4), (7, 5), (14, 14)])
 @pytest.mark.parametrize("kind", sorted(_BOXES))
 def test_footprint_model_matches_autograd_and_jax(kind, out_hw):
-    """The footprint-accumulate form of kernel A′ gives the plain version's
-    gradients (autograd) and the JAX package's (``jax.vjp``): dF within 1e-5
-    of its max, d rois within 1e-4 of its max, in f32."""
+    """Kernel A′'s form (d rois from three taps per axis, dF gathered by map
+    tile in list order) gives the plain version's gradients (autograd) and
+    the JAX package's (``jax.vjp``): dF within 1e-5 of its max, d rois
+    within 1e-4 of its max, in f32."""
     rs = np.random.RandomState(len(kind) + out_hw[0])
     feat = rs.randn(H, W, C).astype(np.float32)
     rois = np.array(_BOXES[kind], np.float32)
@@ -254,7 +222,7 @@ def test_footprint_model_matches_autograd_and_jax(kind, out_hw):
         rois[:, 2] = rois[:, 0] + 4 * out_hw[1] - 1
         rois[:, 3] = rois[:, 1] + 4 * out_hw[0] - 1
     cot = rs.randn(len(rois), *out_hw, C).astype(np.float32)
-    gf, gr, adds = footprint_model(feat, rois, cot, out_hw, SCALE)
+    gf, gr, tiles = footprint_model(feat, rois, cot, out_hw, SCALE)
     _, tf, tr = _torch_grads(feat, rois, cot, out_hw)
     _, vjp = jax.vjp(lambda f, r: j_roi_warp(f, r, out_hw, SCALE), jnp.asarray(feat),
                      jnp.asarray(rois))
@@ -262,18 +230,18 @@ def test_footprint_model_matches_autograd_and_jax(kind, out_hw):
     for wf, wr in ((tf, tr), (jf, jr)):
         np.testing.assert_allclose(gf, wf, rtol=0, atol=max(1e-5 * np.abs(wf).max(), 1e-30))
         np.testing.assert_allclose(gr, wr, rtol=0, atol=max(1e-4 * np.abs(wr).max(), 1e-30))
-    # one add per footprint cell: never more than (rows + 1) x columns the bins
-    # can reach, far fewer than the 4 taps per bin of a scatter
-    assert all(a <= min(2 * out_hw[0], H) * min(2 * out_hw[1], W) for a in adds)
+    # a RoI is listed by the tiles its footprint reaches: a 1-px box's 3 x 3
+    # taps by at most 2 x 2 tiles, a box wholly outside by none
     if kind == "one_px":
-        assert all(a <= 4 for a in adds)
+        assert all(1 <= t <= 4 for t in tiles)
     if kind == "wholly_outside":
-        assert adds == [0, 0] and not gf.any() and not gr.any()
+        assert tiles == [0, 0] and not gf.any() and not gr.any()
 
 
 def test_footprint_model_non_monotone_rows():
-    """A box with y2 < y1 - 1 has bin centers that move UP the map: the walk
-    flushes and restarts instead of shifting, and still sums to the plain
+    """A box with y2 < y1 - 1 has bin centers that move UP the map: its tile
+    lists bound the rows by the smaller and the larger end center, the bins
+    that reach a row are still one run, and dF still sums to the plain
     gradient."""
     rs = np.random.RandomState(11)
     feat = rs.randn(H, W, C).astype(np.float32)
