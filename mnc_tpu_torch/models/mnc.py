@@ -34,6 +34,7 @@ from mnc_tpu_torch.ops.bbox import bbox_transform_inv, clip_boxes, take_rows
 from mnc_tpu_torch.ops.nms import nms_indices
 from mnc_tpu_torch.ops.quant import QUANT_LAYERS
 from mnc_tpu_torch.ops.roi_warp import roi_warp
+from mnc_tpu_torch.utils import spans
 from mnc_tpu_torch.utils.blob import device_normalize
 from mnc_tpu_torch.utils.device import resolve_device
 
@@ -371,30 +372,31 @@ class MNC(nn.Module):
     def __init__(self, arch: MNCArch = MNCArch(), device=None, seed: int | None = 0,
                  train: bool = False):
         super().__init__()
-        dev = resolve_device(device)
-        self.arch = a = arch
-        cd = a.compute_dtype
-        with contextlib.nullcontext() if seed is not None else torch.device("meta"):
-            self._build_layers(a)
-        if seed is None:
-            self.to_empty(device=dev)
-        else:
-            self._init_layers(seed)
-        self.register_buffer("anchors", torch.from_numpy(a.all_anchors()),
-                             persistent=False)
-        self.register_buffer("resize_mat", torch.from_numpy(
-            linear_resize_matrix(a.mask_size, a.warp_hw)), persistent=False)
-        self.requires_grad_(train)
-        self.train(train)
-        self.to(dev)
-        if not train:
-            for m in (self.trunk, self.rpn_head, self.mask_head, self.classify_head):
-                for mod in m.modules():
-                    if not isinstance(mod, QUANT_LAYERS):
-                        mod._apply(lambda t: t.to(cd), recurse=False)
-        if dev.type == "cuda":  # cuDNN's NHWC kernels for the NHWC convolutions
-            for m in (self.trunk, self.rpn_head, self.classify_head):
-                m.to(memory_format=torch.channels_last)
+        with spans.setup_span("mnc.build"):
+            dev = resolve_device(device)
+            self.arch = a = arch
+            cd = a.compute_dtype
+            with contextlib.nullcontext() if seed is not None else torch.device("meta"):
+                self._build_layers(a)
+            if seed is None:
+                self.to_empty(device=dev)
+            else:
+                self._init_layers(seed)
+            self.register_buffer("anchors", torch.from_numpy(a.all_anchors()),
+                                 persistent=False)
+            self.register_buffer("resize_mat", torch.from_numpy(
+                linear_resize_matrix(a.mask_size, a.warp_hw)), persistent=False)
+            self.requires_grad_(train)
+            self.train(train)
+            self.to(dev)
+            if not train:
+                for m in (self.trunk, self.rpn_head, self.mask_head, self.classify_head):
+                    for mod in m.modules():
+                        if not isinstance(mod, QUANT_LAYERS):
+                            mod._apply(lambda t: t.to(cd), recurse=False)
+            if dev.type == "cuda":  # cuDNN's NHWC kernels for the NHWC convolutions
+                for m in (self.trunk, self.rpn_head, self.classify_head):
+                    m.to(memory_format=torch.channels_last)
 
     def _build_layers(self, a: MNCArch) -> None:
         cd = a.compute_dtype
@@ -511,17 +513,21 @@ class MNC(nn.Module):
           stage3_*     the first-pass rois, cls_prob and mask_logits
         """
         a = self.arch
-        feat = self.features(images)
-        rpn_cls, rpn_bbox = self.rpn(feat)
-        im_infos = im_infos.float()
-        rois, roi_valid, _ = propose_rois(rpn_cls, rpn_bbox, im_infos, self.anchors, a)
+        with spans.span("mnc.trunk"):
+            feat = self.features(images)
+        with spans.span("mnc.propose", images.device):
+            rpn_cls, rpn_bbox = self.rpn(feat)
+            im_infos = im_infos.float()
+            rois, roi_valid, _ = propose_rois(rpn_cls, rpn_bbox, im_infos, self.anchors, a)
 
-        mask_logits, cls_prob, bbox_pred = self._heads(feat, rois)
+        with spans.span("mnc.heads"):
+            mask_logits, cls_prob, bbox_pred = self._heads(feat, rois)
         out_rois, out_masks, out_prob = rois, mask_logits, cls_prob
         if a.n_stages == 5:
             rois2 = (stage_bridge(rois, cls_prob, bbox_pred, im_infos, a)
                      if a.test_bbox_reg else rois)
-            mask_logits2, cls_prob2, bbox_pred2 = self._heads(feat, rois2)
+            with spans.span("mnc.heads"):
+                mask_logits2, cls_prob2, bbox_pred2 = self._heads(feat, rois2)
             out_rois, out_masks = rois2, mask_logits2
             out_prob = 0.5 * (cls_prob + cls_prob2)
             bbox_pred = bbox_pred2

@@ -34,6 +34,7 @@ from mnc_tpu_torch.ops.bbox import take_rows
 from mnc_tpu_torch.ops.mask_voting import box_voting_per_det, mask_voting_per_det
 from mnc_tpu_torch.ops.masks import paste_masks
 from mnc_tpu_torch.ops.nms import nms_indices
+from mnc_tpu_torch.utils import spans
 from mnc_tpu_torch.utils.blob import prep_im_for_blob, resize_linear
 
 if TYPE_CHECKING:  # the host half runs without the model code (pipeline/export.py)
@@ -210,14 +211,16 @@ class MNCPipeline:
         """Cascade + post-processing of a batch on ``model``'s canvas; the
         canvas masks bit-packed along W with ``packed``, left out without
         ``paste``."""
-        canvases = torch.as_tensor(canvases, device=self.device)
-        im_infos = torch.as_tensor(im_infos, dtype=torch.float32, device=self.device)
-        net_out = model.apply_batch(canvases, im_infos)
-        post = self.post if paste else dataclasses.replace(self.post, paste=False)
-        r, v, c, m = vote_candidates(net_out, post, model.arch.n_stages, axis=1)
-        out = postprocess_detections(r, v, c, m, post, model.arch.canvas)
-        if packed and "canvas_masks" in out:
-            out["canvas_masks"] = pack_bits(out["canvas_masks"])
+        with spans.setup_span("mnc.first_request"), spans.span("mnc.request", request=True):
+            canvases = torch.as_tensor(canvases, device=self.device)
+            im_infos = torch.as_tensor(im_infos, dtype=torch.float32, device=self.device)
+            net_out = model.apply_batch(canvases, im_infos)
+            post = self.post if paste else dataclasses.replace(self.post, paste=False)
+            r, v, c, m = vote_candidates(net_out, post, model.arch.n_stages, axis=1)
+            out = postprocess_detections(r, v, c, m, post, model.arch.canvas)
+            if packed and "canvas_masks" in out:
+                with spans.span("mnc.pack", self.device):
+                    out["canvas_masks"] = pack_bits(out["canvas_masks"])
         return out
 
     def detect_canvas_batch(self, canvases, im_infos) -> dict:

@@ -9,17 +9,20 @@ default is the VGG-16 configuration of ``chip_smoke.py``: 640×1024 canvas,
 pre-NMS 6000, post-NMS 304, bf16; ``--cfg
 experiments/cfgs/mnc_coco_resnet101.yml --set NET.ROI_CONV5 True`` is the
 ResNet-101 COCO one), with seeded random init (``--fused-block1`` runs VGG
-block 1 through kernel D), and prints, for one request of ``--batch``
-canvases:
+block 1 through kernel D), and drives ``MNCPipeline.detect_canvas_batch_packed``
+(``_run_batch``, the benchmark's request) with the program's spans on
+(``mnc_tpu_torch/utils/spans.py``).  It prints, for one request of
+``--batch`` canvases:
 
-- per-stage stream times from CUDA events around each stage (trunk, RPN +
-  proposals, first head pass, bridge + second head pass, post-processing;
-  a stage's time includes any gap in which the device waited for the host),
-  averaged over ``--iters`` requests, and the median wall time of those
-  requests (host clock, ending in a synchronize);
+- the set-up spans of the pipeline (``mnc.build``, ``mnc.first_request``);
+- each span's host milliseconds a request and, for the spans timed by CUDA
+  events (``mnc.propose``, ``mnc.pack``), its device milliseconds, averaged
+  over ``--iters`` requests, and the median wall time of those requests
+  (host clock, ending in a synchronize);
 - the device's busy time in one more request, traced by ``torch.profiler``
-  (the sum of kernel times on the one stream), and the idle share of the
-  median wall time that leaves;
+  (the sum of kernel times on the one stream), the idle share of the
+  median wall time that leaves, and the device time of the kernels
+  launched inside each span of that request;
 - the kernels that take the most device time, by name;
 - under ``TEST.INT8`` (``--set TEST.INT8 True``), each int8 layer of the
   request on its own: the device time of its activation quantization
@@ -40,40 +43,9 @@ import time
 import torch
 
 from mnc_tpu_torch.config import cfg_from_file, cfg_from_list
-from mnc_tpu_torch.models.mnc import MNC, MNCArch, propose_rois, stage_bridge
-from mnc_tpu_torch.pipeline.inference import PostCfg, postprocess_detections
-from mnc_tpu_torch.pipeline.inference import vote_candidates
-
-
-def _stages(model, post, images, infos):
-    """One request as a list of (stage name, thunk) run in order."""
-    a = model.arch
-    st = {}
-
-    def trunk():
-        st["feat"] = model.features(images)
-
-    def propose():
-        cls, box = model.rpn(st["feat"])
-        st["rois"], st["valid"], _ = propose_rois(cls, box, infos, model.anchors, a)
-
-    def heads1():
-        st["m1"], st["p1"], st["b1"] = model._heads(st["feat"], st["rois"])
-
-    def heads2():
-        st["rois2"] = stage_bridge(st["rois"], st["p1"], st["b1"], infos, a)
-        st["m2"], st["p2"], _ = model._heads(st["feat"], st["rois2"])
-
-    def postprocess():
-        net = {"rois": st["rois2"], "roi_valid": st["valid"],
-               "cls_prob": 0.5 * (st["p1"] + st["p2"]), "mask_logits": st["m2"],
-               "stage3_rois": st["rois"], "stage3_cls_prob": st["p1"],
-               "stage3_mask_logits": st["m1"]}
-        st["out"] = postprocess_detections(*vote_candidates(net, post, 5, axis=1), post,
-                                           a.canvas)
-
-    return [("trunk", trunk), ("rpn+proposals", propose), ("heads pass 1", heads1),
-            ("bridge+heads pass 2", heads2), ("postprocess", postprocess)]
+from mnc_tpu_torch.models.mnc import MNC, MNCArch
+from mnc_tpu_torch.pipeline.inference import MNCPipeline, PostCfg
+from mnc_tpu_torch.utils import spans
 
 
 def _event_ms(fn, iters=5) -> float:
@@ -87,11 +59,11 @@ def _event_ms(fn, iters=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def int8_layer_split(model, stages) -> None:
+def int8_layer_split(model, request) -> None:
     """Times the activation quantization (kernel F) and the kernel E launch
-    of every int8 layer on the inputs one request hands it (the first call
-    of each layer: the first head pass; the second pass has the same
-    shapes)."""
+    of every int8 layer on the inputs that one ``request()`` hands it (the
+    first call of each layer: the first head pass; the second pass has the
+    same shapes)."""
     from mnc_tpu_torch.kernels import gemm_s8_cuda, quant_act_cuda
     from mnc_tpu_torch.ops.quant import QUANT_LAYERS, ConvInt8, quantized_weight
 
@@ -107,8 +79,7 @@ def int8_layer_split(model, stages) -> None:
              with_kwargs=True)
              for name, m in model.named_modules() if isinstance(m, QUANT_LAYERS)]
     try:
-        for _, fn in stages:
-            fn()
+        request()
     finally:
         for h in hooks:
             h.remove()
@@ -173,57 +144,64 @@ def main() -> None:
     infos = torch.tensor([[float(arch.canvas[0]), float(arch.canvas[1]), 1.0]]
                          * args.batch, device="cuda")
 
-    for _, fn in _stages(model, post, images, infos):  # warm-up
-        fn()
-    totals: dict = {}
+    pipe = MNCPipeline(model, post)
+
+    def request():
+        pipe.detect_canvas_batch_packed(images, infos)
+        torch.cuda.synchronize()
+
+    request()  # the pipeline's first request: kernels loaded, cuDNN's first calls
+    for sp in spans.setup_records():
+        print(f"set-up span {sp.name}: {(sp.end_ns - sp.start_ns) / 1e9:.3f} s (host)")
+    spans.reset()
+    spans.enable(True)
     walls = []
     for _ in range(args.iters):
-        stages = _stages(model, post, images, infos)
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        events[0].record()
-        for (name, fn), ev in zip(stages, events[1:]):
-            fn()
-            ev.record()
-        torch.cuda.synchronize()
+        request()
         walls.append((time.perf_counter() - t0) * 1e3)
-        for (name, _), e0, e1 in zip(stages, events[:-1], events[1:]):
-            totals[name] = totals.get(name, 0.0) + e0.elapsed_time(e1) / args.iters
-    total = sum(totals.values())
-    print(f"stage stream times per request of {args.batch} canvases "
-          f"(mean of {args.iters}, CUDA events; fused_block1={args.fused_block1}):")
-    for name, ms in totals.items():
-        print(f"  {name:22s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
-    print(f"  {'total':22s} {total:9.3f} ms")
+    by_name: dict = {}
+    for sp in spans.records():
+        n, host, dev = by_name.get(sp.name, (0, 0.0, None))
+        ms = sp.device_ms()
+        by_name[sp.name] = (n + 1, host + (sp.end_ns - sp.start_ns) / 1e6,
+                            None if ms is None else (dev or 0.0) + ms)
+    print(f"program spans per request of {args.batch} canvases (mean of {args.iters}; host "
+          f"clock, and CUDA events where the span has them; fused_block1={args.fused_block1}):")
+    for name, (n, host, dev) in by_name.items():
+        dev_s = "" if dev is None else f"  device {dev / args.iters:9.3f} ms"
+        print(f"  {name:14s} x{n / args.iters:<4g} host {host / args.iters:9.3f} ms{dev_s}")
     wall_ms = sorted(walls)[len(walls) // 2]
     print(f"wall time per request: median {wall_ms:.3f} ms of "
           + ", ".join(f"{w:.3f}" for w in walls))
     torch.cuda.reset_peak_memory_stats()
-    for _, fn in _stages(model, post, images, infos):
-        fn()
-    torch.cuda.synchronize()
+    request()
     print(f"peak device memory of a request {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _, fn in _stages(model, post, images, infos):
-            fn()
-        torch.cuda.synchronize()
-    # device-side rows only (the aten:: rows repeat their kernels' time)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        request()  # spans on: the profile holds their ranges
+    spans.enable(False)
+    events = prof.key_averages()
+    # device-side rows only (the aten:: rows repeat their kernels' time; the
+    # spans' device-side annotation rows cover their kernels and gaps)
+    rows = [e for e in events if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and not e.key.startswith("mnc.")]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"device busy {busy_ms:.3f} ms per request (traced); idle share of the "
           f"median wall time {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    print("device time of the kernels launched inside each span (the traced request):")
+    for e in events:
+        if e.key.startswith("mnc.") and e.device_type == DeviceType.CPU:
+            print(f"  {e.key:14s} x{e.count:<4d} {e.device_time_total / 1e3:9.3f} ms")
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     print("top kernels by device time in the profiled request:")
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
     if arch.int8_inference:
-        int8_layer_split(model, _stages(model, post, images, infos))
+        int8_layer_split(model, request)
 
 
 if __name__ == "__main__":

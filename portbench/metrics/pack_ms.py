@@ -1,0 +1,9 @@
+"""Device milliseconds a request of the program's ``mnc.pack`` span (``pack_bits``
+of the canvas masks), timed by its CUDA events, over the requests of the
+device-only traced window."""
+
+from portbench.metrics.program_spans import read_device_ms
+
+
+def read(ctx):
+    return read_device_ms(ctx, "mnc.pack")
